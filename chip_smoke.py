@@ -1,0 +1,404 @@
+#!/usr/bin/env python3
+"""On-card smoke run of the PyTorch/CUDA port (``src/repro_torch``).
+
+Drives the port's main path on one NVIDIA card, the way a user would call
+it, and checks each hand-written CUDA kernel against its plain-torch
+version:
+
+  0. preconditions: a CUDA card (else exit non-zero, no result); TF32 off;
+     the card's name and power limit from nvidia-smi;
+  1. build: nvcc compiles ``src/repro_torch/kernels/csrc/fl_gains.cu``;
+  2. kernels: ``fl_gains`` and ``fl_gains_argmax`` (fp32 and bf16 tiles)
+     against their plain versions at ragged shapes and at both main-path
+     pool sizes, then timed with CUDA events at the main-path shape beside
+     their plain versions and bounds;
+  3. select: per-class CRAIG (fraction 0.1, engine='auto') on an
+     Ijcnn1-shaped pool (49,990 × 22, two classes of 33,216 and 16,774) —
+     the ``device`` engine, one ``fl_gains_argmax`` launch per greedy round —
+     held to the same selection with the plain sweep; then a reduced pool
+     through the ``device`` and ``features`` engines, kernel against plain
+     sweep, and the q > 1 lazy path's host syncs;
+  4. train: weighted incremental gradient (paper Eq. 20) on the CRAIG
+     coreset, a random subset and the full data;
+  5. the last line: {"ok": true, "device": {...}}.
+
+Any failure raises and exits non-zero.  Run from the repository root:
+
+    python3 chip_smoke.py
+"""
+from __future__ import annotations
+
+import json
+import math
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+
+N_MAIN, D_MAIN = 49_990, 22
+CLASS_SIZES = {0: 33_216, 1: 16_774}
+BUDGETS = {0: 3_322, 1: 1_677}
+N_REDUCED = 6_144  # ≈ 4,096 points in the larger class
+LAM = 1e-5
+TRAIN_EPOCHS = 2
+CHECK_SIZES = (1, 7, 129, 1000, *CLASS_SIZES.values())
+CHECK_DIMS = (1, 22, 54, 130)
+TIMED_LAUNCHES = 25
+
+# Published dense peaks (NVIDIA data sheet, H100 SXM): fp32 on the CUDA
+# cores and device-memory bandwidth, keyed by the card's name.
+PEAKS = {"NVIDIA H100 80GB HBM3": (67e12, 3.35e12)}
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def card_line() -> str:
+    proc = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    )
+    return proc.stdout.strip().splitlines()[0]
+
+
+def peaks_for(name: str) -> tuple[float, float]:
+    if name not in PEAKS:
+        raise RuntimeError(f"no published peaks recorded for {name!r}")
+    return PEAKS[name]
+
+
+def median_ms(torch, fn, reps: int = TIMED_LAUNCHES) -> float:
+    """Median of ``reps`` CUDA-event-timed calls after three warm-ups."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        stop.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(stop))
+    return statistics.median(times)
+
+
+def gain_tol(x, n: int, d_max: float, bf16: bool) -> float:
+    """rtol-free part of the gains tolerance: self-distance rounding
+    (4·√ε₃₂·max‖x‖, ~√ε₃₂·‖x‖ per self pair in any dot order), fp32
+    summation over n rows of terms ≤ d_max, and bf16 rounding of the tiles."""
+    import torch
+
+    eps = torch.finfo(torch.float32).eps
+    norm = float(torch.linalg.norm(x, dim=1).max())
+    tol = 4.0 * math.sqrt(eps) * norm + 8.0 * n * eps * d_max
+    if bf16:
+        tol += 4.0 * math.sqrt(2.0**-8) * norm
+    return tol
+
+
+def compare_selections(torch, parity, label, a, b, x, y) -> dict:
+    """Hold selection ``a`` (kernel) to ``b`` (plain sweep), class by class,
+    under the tie rule of ``repro_torch.parity``: identical indices up to
+    the first divergence, a near-tie there, then fp64 objectives within
+    1e-3; identical indices and γ when nothing diverged.  Returns
+    ``{class: divergence position}``."""
+    import numpy as np
+
+    diverged = {}
+    for c in np.unique(y):
+        pool = np.nonzero(y == c)[0]
+        members = set(pool.tolist())
+        ia = [int(np.searchsorted(pool, i)) for i in a.indices if int(i) in members]
+        ib = [int(np.searchsorted(pool, i)) for i in b.indices if int(i) in members]
+        xc = x[torch.as_tensor(pool, device=x.device)]
+        t = parity.first_divergence(xc, ia, ib, parity.tie_tolerance(xc))
+        if t is not None:
+            ca, cb = parity.coverage64(xc, ia), parity.coverage64(xc, ib)
+            if abs(ca - cb) > 1e-3 * ca:
+                raise AssertionError(f"{label} class {c}: objective {ca} vs {cb}")
+            diverged[int(c)] = t
+    if not diverged and not (np.array_equal(a.indices, b.indices)
+                             and np.array_equal(a.weights, b.weights)):
+        raise AssertionError(f"{label}: kernel and plain selections differ")
+    return diverged
+
+
+def verdict(diverged: dict) -> str:
+    return ("identical indices and γ" if not diverged else
+            f"near-tie divergence at {diverged} (tie rule), objective within 1e-3")
+
+
+def main() -> None:
+    import torch
+
+    # -- 0. preconditions ---------------------------------------------------
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
+                         "this script runs only on a CUDA card")
+    if not (ROOT / "src" / "repro_torch").is_dir():
+        raise SystemExit(f"chip_smoke: {ROOT / 'src' / 'repro_torch'} is missing; "
+                         "run from a checkout of the repository")
+    sys.path.insert(0, str(ROOT / "src"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    import numpy as np
+
+    from repro_torch import parity
+    from repro_torch.core import engines as E
+    from repro_torch.core.craig import CraigConfig, CraigSelector
+    from repro_torch.core.proxy import convex_feature_proxy
+    from repro_torch.data.synthetic import make_classification
+    from repro_torch.examples.quickstart import logistic, schedule_for
+    from repro_torch.kernels import _build, fl_gains as kfl, ops
+    from repro_torch.optim import ig_run
+
+    dev = torch.device("cuda")
+    name = torch.cuda.get_device_name(0)
+    card = card_line()
+    fp32_peak, mem_bw = peaks_for(name)
+    log(f"[0] card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}; "
+        f"TF32 off")
+    t_start = time.perf_counter()
+
+    # -- 1. build -----------------------------------------------------------
+    t0 = time.perf_counter()
+    lib, text, secs = _build.build()
+    regs = [ln.strip() for ln in text.splitlines() if "registers" in ln]
+    log(f"[1] built {_build.SOURCE.name} -> {lib.name} in {secs:.2f}s (nvcc); "
+        f"ptxas: {' | '.join(regs)}")
+    log(f"[1] build phase {time.perf_counter() - t0:.2f}s")
+
+    # -- 2. kernels against their plain versions ----------------------------
+    gen = torch.Generator(device=dev).manual_seed(0)
+    results = {}
+
+    def operands(n, d):
+        x = 3.0 * torch.randn(n, d, device=dev, generator=gen)
+        sq = torch.sum(x * x, dim=1)
+        d_max = 2.0 * torch.sqrt(sq.max()) + 1e-6
+        cur = 0.5 * d_max * torch.rand(n, device=dev, generator=gen)
+        chosen = torch.rand(n, device=dev, generator=gen) < 0.3
+        if n > 128:
+            chosen[:128] = True  # one fully chosen candidate block
+        chosen[-1] = False  # at least one live candidate
+        return x, sq, d_max, cur, chosen
+
+    max_err = {"fl_gains": 0.0, "fl_gains_argmax": 0.0}
+    checked = 0
+    for n in CHECK_SIZES:
+        for d in CHECK_DIMS:
+            x, sq, d_max, cur, chosen = operands(n, d)
+            for tile in ("float32", "bfloat16"):
+                tol = gain_tol(x, n, float(d_max), tile == "bfloat16")
+                before = ops.LAUNCHES["fl_gains_argmax"]
+                g, pg, pi = ops.fl_gains_argmax(x, x, cur, sq, sq, d_max, chosen,
+                                                tile_dtype=tile, gains_impl="cuda")
+                torch.cuda.synchronize()
+                if ops.LAUNCHES["fl_gains_argmax"] != before + 1:
+                    raise AssertionError("fl_gains_argmax launch counter did not advance")
+                gp, pgp, pip = ops.fl_gains_argmax(x, x, cur, sq, sq, d_max, chosen,
+                                                   tile_dtype=tile, gains_impl="torch")
+                err = float((g - gp).abs().max())
+                scale = float(gp.abs().max())
+                if err > tol + 1e-5 * scale:
+                    raise AssertionError(f"fl_gains_argmax {tile} n={n} d={d}: max "
+                                         f"|err| {err} > {tol} + 1e-5·{scale}")
+                live = torch.where(chosen, float("-inf"), gp)
+                wk, wp = int(pi[torch.argmax(pg)]), int(pip[torch.argmax(pgp)])
+                if wk != wp and abs(float(live[wk]) - float(live[wp])) > tol:
+                    raise AssertionError(f"fl_gains_argmax {tile} n={n} d={d}: winner "
+                                         f"{wk} vs plain {wp} is not a near-tie")
+                if bool(chosen[wk]):
+                    raise AssertionError("a chosen candidate won the sweep")
+                if n > 128 and float(pg[0]) > -1e29:
+                    raise AssertionError(f"dead block reported {float(pg[0])}")
+                if tile == "float32":
+                    max_err["fl_gains_argmax"] = max(max_err["fl_gains_argmax"], err)
+                checked += 1
+            tol = gain_tol(x, n, float(d_max), False)
+            before = ops.LAUNCHES["fl_gains"]
+            g = ops.fl_gains(x, x, cur, sq, sq, d_max, gains_impl="cuda")
+            torch.cuda.synchronize()
+            if ops.LAUNCHES["fl_gains"] != before + 1:
+                raise AssertionError("fl_gains launch counter did not advance")
+            gp = ops.fl_gains(x, x, cur, sq, sq, d_max, gains_impl="torch")
+            err = float((g - gp).abs().max())
+            if err > tol + 1e-5 * float(gp.abs().max()):
+                raise AssertionError(f"fl_gains n={n} d={d}: max |err| {err} > {tol}")
+            max_err["fl_gains"] = max(max_err["fl_gains"], err)
+            checked += 1
+    log(f"[2] {checked} kernel/plain comparisons passed at (n=m) in {CHECK_SIZES}, "
+        f"d in {CHECK_DIMS}; max |gain err| fp32: {max_err}")
+
+    # timing at the main-path sweep shape: n = m = 33,216, d = 22, fp32
+    n, d = CLASS_SIZES[0], D_MAIN
+    x, sq, d_max, _, _ = operands(n, d)
+    cur = torch.zeros(n, device=dev)
+    chosen = torch.zeros(n, dtype=torch.bool, device=dev)
+    madj = (d_max - cur).contiguous()
+    m_blocks = -(-n // _build.library().fl_gains_block_m())
+    ops_count = n * n * (2 * d + 8)  # per pair: d FMAs + norms, sqrt, relu, add
+    io_bytes = {
+        "fl_gains": 4 * (2 * n * d + 3 * n) + 4 * n,
+        "fl_gains_argmax": 4 * (2 * n * d + 3 * n) + n + 4 * n + 8 * m_blocks,
+    }
+    timed = {
+        "fl_gains": (
+            lambda: kfl.fl_gains_cuda(x, x, madj, sq, sq),
+            lambda: kfl.fl_gains_torch(x, x, cur, sq, sq, d_max),
+        ),
+        "fl_gains_argmax": (
+            lambda: kfl.fl_gains_argmax_cuda(x, x, madj, sq, sq, chosen),
+            lambda: kfl.fl_gains_argmax_torch(x, x, cur, sq, sq, d_max, chosen),
+        ),
+    }
+    for kname, (kern, plain) in timed.items():
+        t_ops, t_bytes = ops_count / fp32_peak, io_bytes[kname] / mem_bw
+        results[kname] = {
+            "ms": median_ms(torch, kern),
+            "plain_ms": median_ms(torch, plain),
+            "bound_ms": 1e3 * max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        }
+        log(f"[2] {kname} at n=m={n}, d={d}: {results[kname]}")
+
+    # -- 3. select: the main path -------------------------------------------
+    x_np, y = make_classification(N_MAIN, D_MAIN, 2, seed=0)
+    x_np = x_np / np.abs(x_np).max()
+    if {int(c): int(k) for c, k in zip(*np.unique(y, return_counts=True))} != CLASS_SIZES:
+        raise AssertionError("make_classification no longer gives the Ijcnn1 class sizes")
+    feats = convex_feature_proxy(x_np, device=dev)
+    selector = CraigSelector(CraigConfig(fraction=0.1, per_class=True), device=dev)
+    torch.cuda.synchronize()
+    for k in ops.LAUNCHES:
+        ops.LAUNCHES[k] = 0
+    t0 = time.perf_counter()
+    cs = selector.select(feats, y)
+    torch.cuda.synchronize()
+    select_s = time.perf_counter() - t0
+    main_launches = dict(ops.LAUNCHES)
+    if cs.engine["name"] != "device":
+        raise AssertionError(f"engine='auto' picked {cs.engine}, expected device")
+    if main_launches["fl_gains_argmax"] != sum(BUDGETS.values()):
+        raise AssertionError(f"fl_gains_argmax launched {main_launches}, expected "
+                             f"{sum(BUDGETS.values())} (one per greedy round)")
+    if cs.per_class_sizes != BUDGETS:
+        raise AssertionError(f"per-class budgets {cs.per_class_sizes} != {BUDGETS}")
+    if float(cs.weights.sum()) != N_MAIN or len(np.unique(cs.indices)) != cs.size:
+        raise AssertionError("Σγ != n or duplicate indices")
+    if not math.isfinite(cs.coverage):
+        raise AssertionError(f"coverage {cs.coverage}")
+    log(f"[3] main path: selected {cs.size}/{N_MAIN} with engine {cs.engine} in "
+        f"{select_s:.3f}s; launches {main_launches}; Σγ={cs.weights.sum():.0f}; "
+        f"L(S)={cs.coverage:.4f}")
+
+    # the same selection with the plain sweep on the card
+    t0 = time.perf_counter()
+    plain = CraigSelector(CraigConfig(fraction=0.1, per_class=True,
+                                      engine=E.DeviceConfig(gains_impl="torch")),
+                          device=dev).select(feats, y)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    diverged = compare_selections(torch, parity, "main path", cs, plain, feats, y)
+    log(f"[3] main path, plain sweep: {plain_s:.3f}s, L(S)={plain.coverage:.4f}; "
+        f"kernel against plain: {verdict(diverged)}")
+
+    # reduced pool, kernel against plain sweep, through both engines
+    xr_np, yr = make_classification(N_REDUCED, D_MAIN, 2, seed=0)
+    xr_np = xr_np / np.abs(xr_np).max()
+    xr = convex_feature_proxy(xr_np, device=dev)
+    for label, cfg_cuda, cfg_torch in (
+        ("device", E.DeviceConfig(gains_impl="cuda"), E.DeviceConfig(gains_impl="torch")),
+        ("features", E.FeaturesConfig(gains_impl="cuda"), E.FeaturesConfig(gains_impl="torch")),
+    ):
+        torch.cuda.synchronize()
+        for k in ops.LAUNCHES:
+            ops.LAUNCHES[k] = 0
+        t0 = time.perf_counter()
+        a = CraigSelector(CraigConfig(fraction=0.1, engine=cfg_cuda), device=dev).select(xr, yr)
+        torch.cuda.synchronize()
+        ta = time.perf_counter() - t0
+        launches = dict(ops.LAUNCHES)
+        if label == "features":
+            results["fl_gains"]["launches"] = launches["fl_gains"]
+        t0 = time.perf_counter()
+        b = CraigSelector(CraigConfig(fraction=0.1, engine=cfg_torch), device=dev).select(xr, yr)
+        torch.cuda.synchronize()
+        tb = time.perf_counter() - t0
+        kern = "fl_gains" if label == "features" else "fl_gains_argmax"
+        if launches[kern] != a.size:
+            raise AssertionError(f"{label}: {launches} launches for {a.size} rounds")
+        diverged = compare_selections(torch, parity, label, a, b, xr, yr)
+        log(f"[3] reduced pool {N_REDUCED} ({label}): kernel {ta:.3f}s "
+            f"({launches[kern]} {kern} launches), plain {tb:.3f}s; {verdict(diverged)}")
+
+    # q > 1: the lazy path's host syncs at the main-path class-0 pool
+    pool0 = torch.as_tensor(np.nonzero(y == 0)[0], device=dev)
+    x0 = feats[pool0]
+    for q, tol in ((1, 0.7), (16, 0.7)):
+        stats: dict = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = E.greedy_fl_device(x0, BUDGETS[0], q=q, stale_tol=tol, stats=stats)
+        torch.cuda.synchronize()
+        log(f"[3] device engine q={q} stale_tol={tol} on class 0 ({CLASS_SIZES[0]} × "
+            f"{D_MAIN}, r={BUDGETS[0]}): {time.perf_counter() - t0:.3f}s, {stats} "
+            f"(host syncs = lazy rounds), "
+            f"L(S)={float(r.coverage):.4f}, Σγ={float(r.weights.sum()):.0f}")
+
+    # -- 4. train -----------------------------------------------------------
+    grad_one, full_loss = logistic(feats, y, LAM)
+    sched = schedule_for(N_MAIN)
+    loss0 = full_loss(torch.zeros(D_MAIN, device=dev))
+    arms = {
+        "craig": (cs.indices, cs.weights),
+        "random": (np.random.RandomState(0).choice(N_MAIN, cs.size, replace=False),
+                   np.full(cs.size, N_MAIN / cs.size, np.float32)),
+        "full": (np.arange(N_MAIN), np.ones(N_MAIN, np.float32)),
+    }
+    for arm, (idx, w) in arms.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        w_end, _ = ig_run(grad_one, torch.zeros(D_MAIN, device=dev), idx, w, sched,
+                          TRAIN_EPOCHS)
+        torch.cuda.synchronize()
+        secs = (time.perf_counter() - t0) / TRAIN_EPOCHS
+        loss = full_loss(w_end)
+        if not (math.isfinite(loss) and loss < loss0):
+            raise AssertionError(f"{arm}: loss {loss} is not below {loss0}")
+        log(f"[4] train {arm}: {len(idx)} steps/epoch, {secs:.3f}s/epoch, loss "
+            f"{loss:.6f} after {TRAIN_EPOCHS} epochs (w0: {loss0:.6f} = log 2)")
+
+    # -- 5. report ----------------------------------------------------------
+    replaces = {
+        "fl_gains": "src/repro/kernels/fl_gains.py:106",
+        "fl_gains_argmax": "src/repro/kernels/fl_gains.py:197",
+    }
+    results["fl_gains_argmax"]["launches"] = main_launches["fl_gains_argmax"]
+    kernels = []
+    for kname in ("fl_gains_argmax", "fl_gains"):
+        r = results[kname]
+        kernels.append({
+            "name": kname, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/fl_gains.cu",
+            "replaces": replaces[kname], "launches": r["launches"],
+            "max_abs_err": max_err[kname], "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None,
+        })
+    if any(k["launches"] < 1 for k in kernels):
+        raise AssertionError(f"a kernel of the path was never launched: {kernels}")
+    log(f"[5] total {time.perf_counter() - t_start:.1f}s")
+    print(card, flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

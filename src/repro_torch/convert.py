@@ -1,0 +1,90 @@
+"""Carry engine configs, selections and weights across from ``repro``.
+
+No counterpart in ``repro``: this module takes the reference package's
+outputs as plain numpy arrays and dicts (``EngineConfig.to_dict()``,
+``CoresetSelection`` fields, the logistic-regression weight vector) and
+turns them into the port's objects.  It never imports JAX.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch._device import resolve_device
+from repro_torch.core.craig import CoresetSelection
+from repro_torch.core.engines import EngineConfig, engine_config_from_dict
+
+__all__ = [
+    "GAINS_IMPL_FROM_REFERENCE",
+    "engine_config_from_reference",
+    "selection_from_reference",
+    "params_from_reference",
+]
+
+# The reference's gains implementations and their counterparts here.
+GAINS_IMPL_FROM_REFERENCE = {"jax": "torch", "pallas": "cuda", "auto": "auto"}
+
+
+def engine_config_from_reference(d: dict) -> EngineConfig:
+    """A reference ``EngineConfig.to_dict()`` → the port's typed config.
+
+    ``gains_impl`` maps 'jax' → 'torch', 'pallas' → 'cuda', 'auto' →
+    'auto'.  The device engine's tiles ``block_n`` and ``block_m`` are
+    dropped: the port's kernel streams whole pool columns through blocks
+    of its own width, which the plain twin shares.  Every other field
+    carries over unchanged.  An engine the port does not have yet raises
+    (``registry.NOT_PORTED`` names its item).
+    """
+    d = dict(d)
+    if d.get("name") == "device":
+        d.pop("block_n", None)
+        d.pop("block_m", None)
+    if "gains_impl" in d:
+        impl = d["gains_impl"]
+        if impl not in GAINS_IMPL_FROM_REFERENCE:
+            raise ValueError(f"unknown reference gains_impl {impl!r}")
+        d["gains_impl"] = GAINS_IMPL_FROM_REFERENCE[impl]
+    return engine_config_from_dict(d)
+
+
+def selection_from_reference(
+    indices,
+    weights,
+    *,
+    order=None,
+    coverage: float = float("nan"),
+    epsilon_hat: float | None = None,
+    per_class_sizes: dict | None = None,
+    engine: dict | None = None,
+    n_dropped: int = 0,
+) -> CoresetSelection:
+    """A reference ``CoresetSelection``'s fields → the port's selection.
+
+    Its ``indices`` (greedy order) serve directly as a port
+    ``CraigSelector.select(..., init_selected=...)`` warm start.
+    """
+    indices = np.asarray(indices, np.int64).ravel()
+    weights = np.asarray(weights, np.float32).ravel()
+    if indices.shape != weights.shape:
+        raise ValueError(
+            f"indices {indices.shape} and weights {weights.shape} differ"
+        )
+    return CoresetSelection(
+        indices=indices,
+        weights=weights,
+        order=np.arange(len(indices)) if order is None else np.asarray(order),
+        coverage=float(coverage),
+        epsilon_hat=float(coverage if epsilon_hat is None else epsilon_hat),
+        per_class_sizes=None if per_class_sizes is None else dict(per_class_sizes),
+        engine=None if engine is None else engine_config_from_reference(engine).to_dict(),
+        n_dropped=int(n_dropped),
+    )
+
+
+def params_from_reference(w, device: str | torch.device = "cuda") -> torch.Tensor:
+    """The logistic-regression weight vector (d,) → an fp32 tensor on
+    ``device`` (the card unless the caller asks for the CPU)."""
+    w = np.array(w, np.float32)  # a writable copy
+    if w.ndim != 1:
+        raise ValueError(f"expected a (d,) weight vector, got shape {w.shape}")
+    return torch.from_numpy(w).to(resolve_device(device))

@@ -1,0 +1,351 @@
+"""CRAIG selector (paper Alg. 1 + §3.3 budgeted variant + §5 per-class mode).
+
+Port of ``repro.core.craig``: proxy features → greedy facility location →
+(indices, γ weights, ε estimate).  The greedy maximizer is a pluggable
+``SelectionEngine`` named by ``CraigConfig.engine``: ``'auto'`` (the
+policy in ``engines.auto_engine_config``, keyed on the selector's device)
+or a typed ``EngineConfig``.  The reference's legacy engine strings and
+flat knobs are not ported (ROADMAP.md queue 1); a string other than
+``'auto'`` raises.
+
+The selector runs on its ``device`` — the card unless the caller asks for
+the CPU.  Host inputs are moved there; only the (n,) finite mask and the
+small index/weight outputs come back.
+"""
+from __future__ import annotations
+
+import dataclasses
+import warnings
+from typing import Literal
+
+import numpy as np
+import torch
+
+from repro_torch._device import resolve_device
+from repro_torch.core.engines import (
+    EngineConfig,
+    auto_engine_config,
+    make_engine,
+)
+
+__all__ = ["CraigConfig", "CoresetSelection", "CraigSelector", "_apportion_budgets"]
+
+_LEGACY_ITEM = "ROADMAP.md queue 1, 'legacy engine strings and the façade'"
+
+
+def _apportion_budgets(counts: np.ndarray, total_budget: int) -> np.ndarray:
+    """Largest-remainder apportionment of ``total_budget`` across classes.
+
+    Invariants: Σ budgets == min(total_budget, Σ counts); budgets ≤ counts;
+    every class gets ≥ 1 while feasible, else the most frequent classes win
+    the singletons (ties → lower class index).
+    """
+    counts = np.asarray(counts, np.int64)
+    k = len(counts)
+    total = int(min(int(total_budget), int(counts.sum())))
+    budgets = np.zeros(k, np.int64)
+    if total <= 0:
+        return budgets
+    if total < k:
+        order = np.lexsort((np.arange(k), -counts))
+        budgets[order[:total]] = 1
+        return budgets
+    raw = counts / counts.sum() * total
+    budgets = np.minimum(np.maximum(np.floor(raw).astype(np.int64), 1), counts)
+    while budgets.sum() < total:
+        room = budgets < counts
+        frac = np.where(room, raw - budgets, -np.inf)
+        budgets[int(np.argmax(frac))] += 1
+    while budgets.sum() > total:
+        cand = np.where(budgets > 1, budgets, -1)
+        budgets[int(np.argmax(cand))] -= 1
+    return budgets
+
+
+@dataclasses.dataclass(frozen=True, kw_only=True)
+class CraigConfig:
+    """Configuration for CRAIG subset selection.
+
+    Attributes:
+      mode: 'budget' (|S| ≤ fraction·n, paper Eq. 14) or 'cover'
+        (grow until L(S) ≤ epsilon, paper Eq. 12).
+      fraction: subset fraction r/n for 'budget' mode.
+      epsilon: target coverage for 'cover' mode (same units as d_ij).
+      metric: 'l2' (the paper's) or 'cosine'.
+      engine: ``'auto'`` (default) or a typed ``EngineConfig``
+        (``MatrixConfig()``, ``FeaturesConfig(...)``, ``DeviceConfig(...)``).
+      per_class: stratified per-class selection (paper §5).
+      seed: seed threaded to stochastic engines (none ported yet).
+      validate_features: 'raise' | 'drop' | 'off' NaN/Inf guard.
+    """
+
+    mode: Literal["budget", "cover"] = "budget"
+    fraction: float = 0.1
+    epsilon: float = 0.0
+    metric: str = "l2"
+    engine: str | EngineConfig = "auto"
+    per_class: bool = True
+    seed: int = 0
+    validate_features: Literal["raise", "drop", "off"] = "raise"
+
+
+@dataclasses.dataclass
+class CoresetSelection:
+    """A selected weighted coreset (host numpy arrays).
+
+    indices/weights are aligned; ``order`` is the greedy selection order.
+    ``engine`` is the resolved ``EngineConfig.to_dict()`` provenance.
+    """
+
+    indices: np.ndarray  # (r,) int64 into the pool
+    weights: np.ndarray  # (r,) float32, sum == n
+    order: np.ndarray  # (r,) — positions, greedy order
+    coverage: float
+    epsilon_hat: float
+    per_class_sizes: dict[int, int] | None = None
+    engine: dict | None = None
+    n_dropped: int = 0
+
+    @property
+    def size(self) -> int:
+        return int(self.indices.shape[0])
+
+
+class CraigSelector:
+    """Selects weighted coresets from gradient-proxy features.
+
+    Usage::
+
+        sel = CraigSelector(CraigConfig(fraction=0.1))        # on the card
+        sel = CraigSelector(CraigConfig(fraction=0.1), device="cpu")
+        coreset = sel.select(proxy_feats, labels=labels)
+    """
+
+    def __init__(self, config: CraigConfig, device: str | torch.device = "cuda"):
+        self.config = config
+        self.device = resolve_device(device)
+
+    # -- public API ---------------------------------------------------------
+
+    def resolve_engine(self, n: int) -> EngineConfig:
+        """The typed engine config a greedy run over ``n`` points uses."""
+        engine = self.config.engine
+        if isinstance(engine, EngineConfig):
+            return engine
+        if engine == "auto":
+            return auto_engine_config(
+                n, backend=self.device.type, mode=self.config.mode
+            )
+        raise ValueError(
+            f"CraigConfig.engine={engine!r}: legacy engine strings are not "
+            f"ported to repro_torch ({_LEGACY_ITEM}); pass 'auto' or a typed "
+            "config such as repro_torch.core.engines.DeviceConfig()"
+        )
+
+    def select(
+        self,
+        feats,
+        labels: np.ndarray | None = None,
+        init_selected: np.ndarray | None = None,
+    ) -> CoresetSelection:
+        """Select a weighted coreset from (n, d) proxy features.
+
+        Args:
+          feats: (n, d) numpy array or tensor; moved to the selector's device.
+          labels: optional (n,) integer class labels (per-class mode).
+          init_selected: optional warm-start medoids (indices into
+            ``feats``, greedy order) whose cover state is replayed.
+        """
+        cfg = self.config
+        feats = torch.as_tensor(feats, dtype=torch.float32).to(self.device)
+        n_orig = feats.shape[0]
+        init = self._clean_init(init_selected, n_orig)
+        feats, labels, init, keep_idx = self._validated(feats, labels, init)
+        n = feats.shape[0]
+        if cfg.per_class and labels is not None:
+            labels = np.asarray(labels)
+            # engine='auto' keys on the pool one greedy run sweeps — here
+            # the largest class
+            counts = np.unique(labels, return_counts=True)[1]
+            engine_cfg = self.resolve_engine(int(counts.max()))
+            sel = self._select_per_class(feats, labels, init, engine_cfg)
+        else:
+            if cfg.per_class:
+                warnings.warn(
+                    "per_class=True but no labels were provided; falling "
+                    "back to flat (unstratified) selection — pass labels to "
+                    "CraigSelector.select for the paper-§5 per-class mode",
+                    UserWarning,
+                    stacklevel=2,
+                )
+            engine_cfg = self.resolve_engine(n)
+            idx, w, _, coverage = self._select_flat(
+                feats, self._budget(n), init, engine_cfg
+            )
+            sel = CoresetSelection(
+                indices=idx,
+                weights=w,
+                order=np.arange(len(idx)),
+                coverage=coverage,
+                epsilon_hat=coverage,
+                engine=engine_cfg.to_dict(),
+            )
+        if keep_idx is not None:
+            sel.indices = keep_idx[sel.indices]
+            sel.n_dropped = int(n_orig - len(keep_idx))
+        return sel
+
+    # -- internals ----------------------------------------------------------
+
+    def _budget(self, n: int) -> int:
+        return max(1, int(round(self.config.fraction * n)))
+
+    def _validated(self, feats, labels, init):
+        """NaN/Inf guard; returns (feats, labels, init, keep_idx)."""
+        mode = self.config.validate_features
+        if mode == "off":
+            return feats, labels, init, None
+        if mode not in ("raise", "drop"):
+            raise ValueError(
+                f"validate_features={mode!r} is not a policy; expected "
+                "'raise', 'drop' or 'off'"
+            )
+        finite = torch.isfinite(feats).all(dim=1).cpu().numpy()
+        if bool(finite.all()):
+            return feats, labels, init, None
+        bad = np.nonzero(~finite)[0]
+        if mode == "raise":
+            raise ValueError(
+                f"{bad.size} of {finite.size} proxy feature rows contain "
+                f"NaN/Inf (first bad rows: {bad[:8].tolist()}); a non-finite "
+                "row silently poisons the facility-location argmax.  Fix the "
+                "proxy/extraction or set "
+                "CraigConfig(validate_features='drop') to drop-and-warn."
+            )
+        keep_idx = np.nonzero(finite)[0]
+        if keep_idx.size == 0:
+            raise ValueError(
+                "every proxy feature row is NaN/Inf; nothing to select from"
+            )
+        warnings.warn(
+            f"dropping {bad.size} NaN/Inf proxy feature rows before "
+            f"selection (validate_features='drop'); first bad rows: "
+            f"{bad[:8].tolist()}",
+            UserWarning,
+            stacklevel=3,
+        )
+        feats = feats[torch.as_tensor(keep_idx, device=feats.device)]
+        if labels is not None:
+            labels = np.asarray(labels)[keep_idx]
+        if init is not None:
+            pos = np.full(finite.size, -1, np.int64)
+            pos[keep_idx] = np.arange(keep_idx.size)
+            init = pos[init]
+            init = init[init >= 0]
+            if init.size == 0:
+                init = None
+        return feats, labels, init, keep_idx
+
+    @staticmethod
+    def _clean_init(init_selected, n: int) -> np.ndarray | None:
+        """int64, unique (order-preserving), bounds-checked; None if empty."""
+        if init_selected is None:
+            return None
+        init = np.asarray(init_selected, np.int64).ravel()
+        if init.size == 0:
+            return None
+        if init.min() < 0 or init.max() >= n:
+            raise ValueError(
+                f"init_selected out of range [0, {n}): "
+                f"[{init.min()}, {init.max()}]"
+            )
+        _, first = np.unique(init, return_index=True)
+        return init[np.sort(first)]
+
+    def _select_flat(self, feats, budget, init, engine_cfg):
+        """One engine run; returns host (indices, weights, gains, coverage)."""
+        cfg = self.config
+        n = feats.shape[0]
+        budget = min(budget, n)
+        if init is not None:
+            init = init[:budget]
+        engine = make_engine(engine_cfg)
+        caps = engine.capabilities
+        if cfg.metric not in caps.supports_metrics:
+            raise ValueError(
+                f"engine {engine_cfg.name!r} supports metrics "
+                f"{caps.supports_metrics}, got {cfg.metric!r}"
+            )
+        if cfg.mode == "cover":
+            if not caps.supports_cover:
+                raise ValueError(
+                    "mode='cover' needs exact prefix coverages (paper "
+                    f"Eq. 12); engine {engine_cfg.name!r} does not support "
+                    "it (Capabilities.supports_cover) — use "
+                    "engines.MatrixConfig()"
+                )
+            res = engine.select_cover(feats, cfg.epsilon, metric=cfg.metric)
+        else:
+            res = engine.select(
+                feats, budget,
+                metric=cfg.metric, init_selected=init, rng=cfg.seed,
+            )
+        idx = res.indices.cpu().numpy().astype(np.int64)
+        if len(np.unique(idx)) != len(idx):
+            raise AssertionError(
+                f"engine {engine_cfg.name!r} selected duplicate indices "
+                f"({len(idx) - len(np.unique(idx))} repeats)"
+            )
+        return (
+            idx,
+            res.weights.cpu().numpy().astype(np.float32),
+            res.gains.cpu().numpy(),
+            float(res.coverage),
+        )
+
+    def _select_per_class(self, feats, labels, init, engine_cfg):
+        """Paper §5: select within each class, budgets ∝ class frequency."""
+        n = feats.shape[0]
+        classes = np.unique(labels)
+        total_budget = min(self._budget(n), n)
+        all_idx: list[np.ndarray] = []
+        all_w: list[np.ndarray] = []
+        coverage = 0.0
+        sizes: dict[int, int] = {}
+        counts = np.array([(labels == c).sum() for c in classes], np.int64)
+        if self.config.mode == "cover":
+            budgets = counts  # ε-driven sizes; no class is skipped
+        else:
+            budgets = _apportion_budgets(counts, total_budget)
+        for c, b in zip(classes, budgets):
+            sizes[int(c)] = 0
+            if b == 0:
+                continue
+            pool = np.nonzero(labels == c)[0]
+            sub_feats = feats[torch.as_tensor(pool, device=feats.device)]
+            init_c = None
+            if init is not None:
+                own = init[np.isin(init, pool)]
+                if own.size:
+                    init_c = np.searchsorted(pool, own)
+            idx, w, _, cov = self._select_flat(sub_feats, int(b), init_c, engine_cfg)
+            all_idx.append(pool[idx])
+            all_w.append(w)
+            coverage += cov
+            sizes[int(c)] = int(idx.shape[0])
+        indices = np.concatenate(all_idx)
+        weights = np.concatenate(all_w)
+        if self.config.mode == "budget" and len(indices) != total_budget:
+            raise AssertionError((len(indices), total_budget))
+        # Σγ == n even when the budget cannot cover every class.
+        if weights.sum() < n:
+            weights = weights * (n / weights.sum())
+        return CoresetSelection(
+            indices=indices,
+            weights=weights,
+            order=np.arange(len(indices)),
+            coverage=coverage,
+            epsilon_hat=coverage,
+            per_class_sizes=sizes,
+            engine=engine_cfg.to_dict(),
+        )

@@ -1,0 +1,62 @@
+"""Greedy facility-location engines behind the SelectionEngine registry.
+
+Port of ``repro.core.engines``: the shared protocol (``base``), the
+registry with the ``engine='auto'`` policy (``registry``), and the engines
+this slice ports — matrix, features and device.  The lazy, stochastic,
+sparse and streaming engines and the legacy flat-knob shims are not
+ported yet (ROADMAP.md queue 1); naming one raises.
+"""
+from repro_torch.core.engines.base import (
+    Capabilities,
+    EngineConfig,
+    FLResult,
+    SelectionEngine,
+    assign_and_weights,
+    cosine_residual_coverage,
+    coverage_l,
+    normalize_for_metric,
+    pairwise_distances,
+)
+from repro_torch.core.engines.registry import (
+    auto_engine_config,
+    engine_config_from_dict,
+    get_engine,
+    list_engines,
+    make_engine,
+    parse_engine_spec,
+    register_engine,
+)
+
+# Engine modules self-register on import; matrix first.
+from repro_torch.core.engines.matrix import MatrixConfig, MatrixEngine, greedy_fl_matrix
+from repro_torch.core.engines.features import (
+    FeaturesConfig,
+    FeaturesEngine,
+    greedy_fl_features,
+)
+from repro_torch.core.engines.device import DeviceConfig, DeviceEngine, greedy_fl_device
+
+__all__ = [
+    "Capabilities",
+    "EngineConfig",
+    "FLResult",
+    "SelectionEngine",
+    "register_engine",
+    "get_engine",
+    "list_engines",
+    "make_engine",
+    "engine_config_from_dict",
+    "parse_engine_spec",
+    "auto_engine_config",
+    "MatrixConfig", "MatrixEngine",
+    "FeaturesConfig", "FeaturesEngine",
+    "DeviceConfig", "DeviceEngine",
+    "pairwise_distances",
+    "normalize_for_metric",
+    "cosine_residual_coverage",
+    "coverage_l",
+    "assign_and_weights",
+    "greedy_fl_matrix",
+    "greedy_fl_features",
+    "greedy_fl_device",
+]

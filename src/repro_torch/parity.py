@@ -1,0 +1,77 @@
+"""Greedy index parity under the tie rule (no counterpart in ``repro``).
+
+Two fp32 implementations of the same greedy can legitimately pick
+different winners when the top two gains are closer than fp32 rounding
+of the distances: the self-distance from ‖x‖² + ‖x‖² − 2·x·x comes out
+at about √ε₃₂·‖x‖ instead of 0, differently in every dot order.  The rule
+the tests and ``chip_smoke.py`` hold both packages to:
+
+  * indices must agree up to the first divergence;
+  * at a divergence, the two picks' gains given the common prefix,
+    recomputed in fp64, must both lie within ``tol`` of the fp64 best;
+  * past it the runs are compared by objective value, not by index.
+"""
+from __future__ import annotations
+
+import torch
+
+__all__ = ["tie_tolerance", "fp64_gains", "coverage64", "first_divergence"]
+
+
+def tie_tolerance(x: torch.Tensor) -> float:
+    """τ = 8·√ε₃₂·max‖x‖: a few rows' worth of self-distance rounding."""
+    eps = torch.finfo(torch.float32).eps
+    return 8.0 * eps**0.5 * float(torch.linalg.norm(x.double(), dim=1).max())
+
+
+def _dist64(x: torch.Tensor) -> torch.Tensor:
+    x = x.double()
+    return torch.cdist(x, x)
+
+
+def fp64_gains(x: torch.Tensor, prefix) -> torch.Tensor:
+    """(n,) fp64 marginal gains given the selected ``prefix``; chosen → −inf.
+
+    gain(e) = Σ_i relu(min_{s∈prefix} D_is − D_ie), with D_is := +max D
+    for an empty prefix (the d_max offset cancels).
+    """
+    dist = _dist64(x)
+    prefix = torch.as_tensor(prefix, dtype=torch.int64, device=dist.device)
+    if prefix.numel():
+        cover = dist[:, prefix].min(dim=1).values
+    else:
+        cover = torch.full_like(dist[:, 0], float(dist.max()) + 1e-6)
+    g = torch.clamp(cover[:, None] - dist, min=0.0).sum(dim=0)
+    g[prefix] = float("-inf")
+    return g
+
+
+def coverage64(x: torch.Tensor, indices) -> float:
+    """L(S) = Σ_i min_{j∈S} ‖x_i − x_j‖ in fp64."""
+    idx = torch.as_tensor(indices, dtype=torch.int64, device=x.device)
+    return float(_dist64(x)[:, idx].min(dim=1).values.sum())
+
+
+def first_divergence(x: torch.Tensor, idx_a, idx_b, tol: float):
+    """Position of the first index divergence, or None when equal.
+
+    Raises AssertionError when the two picks at the divergence are not a
+    near-tie (either is more than ``tol`` below the fp64 best gain).
+    """
+    a = [int(i) for i in idx_a]
+    b = [int(i) for i in idx_b]
+    if len(a) != len(b):
+        raise AssertionError(f"selection sizes differ: {len(a)} vs {len(b)}")
+    t = next((k for k in range(len(a)) if a[k] != b[k]), None)
+    if t is None:
+        return None
+    g = fp64_gains(x, a[:t])
+    best = float(g.max())
+    ga, gb = float(g[a[t]]), float(g[b[t]])
+    if best - ga > tol or best - gb > tol:
+        raise AssertionError(
+            f"greedy divergence at position {t} is not a near-tie: picks "
+            f"{a[t]} (fp64 gain {ga!r}) and {b[t]} ({gb!r}), best {best!r}, "
+            f"tolerance {tol!r}"
+        )
+    return t
