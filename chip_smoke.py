@@ -7,11 +7,14 @@ version:
 
   0. preconditions: a CUDA card (else exit non-zero, no result); TF32 off;
      the card's name and power limit from nvidia-smi;
-  1. build: nvcc compiles ``src/repro_torch/kernels/csrc/fl_gains.cu``;
+  1. build: one nvcc per ``src/repro_torch/kernels/csrc/*.cu``, all started
+     together;
   2. kernels: ``fl_gains`` and ``fl_gains_argmax`` (fp32 and bf16 tiles)
      against their plain versions at ragged shapes and at both main-path
      pool sizes, then timed with CUDA events at the main-path shape beside
-     their plain versions and bounds;
+     their plain versions and bounds; ``ce_proxy`` (bf16 and fp32) against
+     its plain version at T = 4,096, D = 2048, V = 151,936 and at ragged
+     shapes, then timed the same way;
   3. select: per-class CRAIG (fraction 0.1, engine='auto') on an
      Ijcnn1-shaped pool (49,990 × 22, two classes of 33,216 and 16,774) —
      the ``device`` engine, one ``fl_gains_argmax`` launch per greedy round —
@@ -20,7 +23,15 @@ version:
      sweep, and the q > 1 lazy path's host syncs;
   4. train: weighted incremental gradient (paper Eq. 20) on the CRAIG
      coreset, a random subset and the full data;
-  5. the last line: {"ok": true, "device": {...}}.
+  5. LM proxies at qwen3-1.7b width: ``proxy_features_fused`` (the
+     ``ce_proxy`` kernel) against ``proxy_features`` (the einsum path) on one
+     8 × 512 batch of a seeded model, both timed, whole and head alone;
+  6. LM coreset training, the slice-2 main path: ``Trainer.run`` at
+     qwen3-1.7b width on the seeded token stream, with per-epoch CRAIG
+     refresh through the ``ce_proxy`` kernel — inline refreshes (timed
+     apart), then the default asynchronous refresh, whose epoch-0 losses
+     must match;
+  7. the last line: {"ok": true, "device": {...}}.
 
 Any failure raises and exits non-zero.  Run from the repository root:
 
@@ -48,9 +59,32 @@ CHECK_SIZES = (1, 7, 129, 1000, *CLASS_SIZES.values())
 CHECK_DIMS = (1, 22, 54, 130)
 TIMED_LAUNCHES = 25
 
+# LM phases: qwen3-1.7b at full width on the seeded token stream.
+LM_ARCH = "qwen3-1.7b"
+LM_DOCS, LM_SEQ, LM_BATCH = 512, 512, 8
+LM_FRACTION = 0.3
+# 64 full-data steps (epoch 0; selection v1 at step 0), 19 steps on the
+# first coreset (epoch 1; v1 installed, v2 selected at step 64), and the
+# first step of epoch 2 (v2 installed, v3 selected): three refreshes.
+LM_STEPS = 84
+# The asynchronous run: epoch 0 while v1 is selected in the background,
+# then the install of v1 (and v2 started) at step 64.
+LM_ASYNC_STEPS = 65
+CE_SHAPES = (  # (T, D, V, valid_v): main-path shape, then ragged ones
+    (4096, 2048, 151_936, 151_936),
+    (1000, 96, 1000, 997),
+    (1000, 72, 1000, 997),
+)
+CE_TIMED = {"bfloat16": 5, "float32": 3}  # CUDA-event-timed launches
+PROXY_TIMED = 5  # CUDA-event-timed calls of each proxy path at full width
+# Device memory still allocated after a trainer is deleted; its parameters
+# alone are 8.1 GB.
+FREED_GB = 4.0
+
 # Published dense peaks (NVIDIA data sheet, H100 SXM): fp32 on the CUDA
-# cores and device-memory bandwidth, keyed by the card's name.
-PEAKS = {"NVIDIA H100 80GB HBM3": (67e12, 3.35e12)}
+# cores, bf16 on the tensor cores, and device-memory bandwidth, keyed by
+# the card's name.
+PEAKS = {"NVIDIA H100 80GB HBM3": (67e12, 989e12, 3.35e12)}
 
 
 def log(msg: str) -> None:
@@ -65,7 +99,7 @@ def card_line() -> str:
     return proc.stdout.strip().splitlines()[0]
 
 
-def peaks_for(name: str) -> tuple[float, float]:
+def peaks_for(name: str) -> tuple[float, float, float]:
     if name not in PEAKS:
         raise RuntimeError(f"no published peaks recorded for {name!r}")
     return PEAKS[name]
@@ -134,6 +168,207 @@ def verdict(diverged: dict) -> str:
             f"near-tie divergence at {diverged} (tie rule), objective within 1e-3")
 
 
+def ce_tol(w, dtype: str) -> float:
+    """Tolerance of ``ce_proxy`` against its plain version.  g is a convex
+    combination of W rows minus a W row, so errors scale with max|W|.
+    bf16: one bf16 ulp (2⁻⁸) of max|W| — a p value whose fp32 exp differs
+    in the last bit may round to the neighbouring bf16 value.  fp32: the
+    softmax sums run over V ≈ 1.5·10⁵ terms in another order, a relative
+    error of about √V·ε₃₂ ≈ 5·10⁻⁵: 1e-4·max|W|."""
+    wmax = float(w.abs().max())
+    return (2.0**-8 if dtype == "bfloat16" else 1e-4) * wmax
+
+
+def check_ce_proxy(torch, ops, kce, dev, gen, peaks) -> dict:
+    """``ce_proxy`` kernel against its plain version in both dtypes at every
+    shape of CE_SHAPES (labels include the last valid column), then CUDA-event
+    times at the main-path shape.  Returns the report entry (bf16, the main
+    path's dtype) and logs the fp32 figures beside it."""
+    fp32_peak, bf16_peak, mem_bw = peaks
+    max_err = {"bfloat16": 0.0, "float32": 0.0}
+    timed = {}
+    for T, D, V, vv in CE_SHAPES:
+        h = torch.randn(T, D, device=dev, generator=gen)
+        w = 0.05 * torch.randn(V, D, device=dev, generator=gen)
+        y = torch.randint(0, vv, (T,), device=dev, generator=gen)
+        y[-1] = vv - 1
+        y[0] = vv - 1
+        for dname in ("bfloat16", "float32"):
+            cd = getattr(torch, dname)
+            before = ops.LAUNCHES["ce_proxy"]
+            got = ops.ce_proxy(h, w, y, valid_v=vv, compute_dtype=cd, impl="cuda")
+            torch.cuda.synchronize()
+            if ops.LAUNCHES["ce_proxy"] != before + 1:
+                raise AssertionError("ce_proxy launch counter did not advance")
+            want = ops.ce_proxy(h, w, y, valid_v=vv, compute_dtype=cd, impl="torch")
+            if not bool(torch.isfinite(got).all()):
+                raise AssertionError(f"ce_proxy {dname} T={T} D={D} V={V}: non-finite output")
+            err = float((got - want).abs().max())
+            tol = ce_tol(w, dname)
+            if err > tol:
+                raise AssertionError(f"ce_proxy {dname} T={T} D={D} V={V} valid_v={vv}: "
+                                     f"max |err| {err} > {tol}")
+            max_err[dname] = max(max_err[dname], err)
+            log(f"[2] ce_proxy {dname} T={T} D={D} V={V} valid_v={vv}: max |err| "
+                f"{err:.3e} (tol {tol:.3e})")
+        if (T, D, V, vv) != CE_SHAPES[0]:
+            continue
+        for dname, reps in CE_TIMED.items():
+            cd = getattr(torch, dname)
+            hc, wc, yc = h.to(cd), w.to(cd), y.to(torch.int32)
+            es = 2 if dname == "bfloat16" else 4
+            t_ops = 4.0 * T * V * D / (bf16_peak if dname == "bfloat16" else fp32_peak)
+            t_bytes = (es * (T * D + V * D) + 4 * T + 4 * T * D) / mem_bw
+            timed[dname] = {
+                "ms": median_ms(torch, lambda: kce.ce_proxy_cuda(hc, wc, yc, vv), reps),
+                "plain_ms": median_ms(torch, lambda: kce.ce_proxy_torch(h, w, y, vv, cd), reps),
+                "bound_ms": 1e3 * max(t_ops, t_bytes),
+                "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            }
+            log(f"[2] ce_proxy {dname} at T={T}, D={D}, V={V}: {timed[dname]}")
+    return {**timed["bfloat16"], "max_abs_err": max_err["bfloat16"],
+            "fp32": {**timed["float32"], "max_abs_err": max_err["float32"]}}
+
+
+def full_width_proxy_check(torch, ops, card, dev) -> None:
+    """qwen3-1.7b at full width, seeded on the card: the fused proxy (the
+    ``ce_proxy`` kernel, bf16) against the einsum path on one 8 × 512 batch.
+    Tolerance 2⁻⁵·max|W|: the einsum path also rounds its logits and its
+    (p − y) to bf16 where the kernel keeps fp32 (a few bf16 ulps of a
+    convex combination of W rows).  Then both paths are timed per batch,
+    whole (forward included) and head alone (on the same hidden states)."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.proxy import lm_unembed_input_proxy
+    from repro_torch.data import TokenStream, to_device
+    from repro_torch.models import (COMPUTE_DTYPE, forward, init_params, proxy_features,
+                                    proxy_features_fused, unembed_matrix)
+
+    cfg = get_config(LM_ARCH)
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.values())
+    # param_count() counts the real vocabulary; the tables hold padded rows
+    expected = cfg.param_count() + 2 * (cfg.padded_vocab - cfg.vocab_size) * cfg.d_model
+    if n_params != expected:
+        raise AssertionError(f"{n_params} parameters, config says {expected}")
+    ds = TokenStream(n_docs=LM_DOCS, seq_len=LM_SEQ, vocab_size=cfg.vocab_size)
+    batch = to_device(ds.batch(np.arange(LM_BATCH)), dev)
+    fused = proxy_features_fused(params, cfg, batch)
+    einsum = proxy_features(params, cfg, batch)
+    torch.cuda.synchronize()
+    err = float((fused - einsum).abs().max())
+    tol = 2.0**-5 * float(params["unembed"].abs().max())
+    if fused.shape != (LM_BATCH, cfg.d_model) or not bool(torch.isfinite(fused).all()):
+        raise AssertionError(f"fused proxies: shape {tuple(fused.shape)} or non-finite")
+    if err > tol:
+        raise AssertionError(f"fused against einsum proxies: max |err| {err} > {tol}")
+    log(f"[5] {LM_ARCH} ({n_params:,} params, seeded on the card): fused proxies "
+        f"{tuple(fused.shape)} against einsum, max |err| {err:.3e} (tol {tol:.3e}, "
+        f"max|g| {float(einsum.abs().max()):.3e}); {time.perf_counter() - t0:.1f}s; {card}")
+    with torch.no_grad():
+        hidden, _ = forward(params, cfg, batch)
+        w, labels = unembed_matrix(params), batch["labels"]
+        h2, y2 = hidden.reshape(-1, cfg.d_model), labels.reshape(-1)
+        ms = {
+            "fused (kernel)": lambda: proxy_features_fused(params, cfg, batch),
+            "einsum": lambda: proxy_features(params, cfg, batch),
+            "kernel head": lambda: ops.ce_proxy(
+                h2, w, y2, valid_v=cfg.vocab_size, compute_dtype=COMPUTE_DTYPE, impl="cuda"),
+            "einsum head": lambda: lm_unembed_input_proxy(
+                hidden, w, labels, chunk=cfg.logit_chunk, valid_v=cfg.vocab_size,
+                compute_dtype=COMPUTE_DTYPE),
+        }
+        ms = {k: round(median_ms(torch, fn, PROXY_TIMED), 3) for k, fn in ms.items()}
+    log(f"[5] {LM_ARCH} proxies per {LM_BATCH}×{LM_SEQ} batch, median ms of {PROXY_TIMED} "
+        f"(whole = forward + head): {ms}; {card}")
+    del params, fused, einsum, batch, hidden, w, labels, h2, y2
+    torch.cuda.empty_cache()
+
+
+def train_lm(torch, ops, card, dev, mode: str, n_steps: int, expect: tuple,
+             tag: str) -> dict:
+    """``Trainer.run`` at qwen3-1.7b width with per-epoch CRAIG refresh.
+    Counts are zeroed just before the run and read just after.  ``expect``
+    is (refreshes, installs).  With ``mode='sync'`` the refreshes run
+    inline, so step, extraction and selection seconds are measured apart;
+    with ``'async'`` extraction overlaps training (the trainer's default),
+    and each install reports how long its step waited for the selection.
+    Returns the run's losses and launches."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.craig import CraigConfig
+    from repro_torch.data.synthetic import TokenStream
+    from repro_torch.models import init_params
+    from repro_torch.optim import adamw, warmup_cosine
+    from repro_torch.train import Trainer, TrainerConfig
+
+    cfg = get_config(LM_ARCH)
+    ds = TokenStream(n_docs=LM_DOCS, seq_len=LM_SEQ, vocab_size=cfg.vocab_size)
+    pool_batches = LM_DOCS // LM_BATCH
+    tcfg = TrainerConfig(
+        batch_size=LM_BATCH, select_every_epochs=1,
+        craig=CraigConfig(fraction=LM_FRACTION, per_class=False),
+        proxy_pool_batches=pool_batches, refresh_mode=mode,
+    )
+    gen = torch.Generator(device=dev).manual_seed(0)
+    trainer = Trainer(cfg, tcfg, ds, adamw(warmup_cosine(3e-4, 10, LM_STEPS)),
+                      lambda: init_params(cfg, gen), device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for k in ops.LAUNCHES:
+        ops.LAUNCHES[k] = 0
+    t0 = time.perf_counter()
+    log_ = trainer.run(n_steps)
+    trainer.refresher.wait()
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    steps = [m for m in log_ if m["event"] == "step"]
+    installs = [m for m in log_ if m["event"] == "craig_refresh"]
+    pending = trainer.sampler._pending
+    n_refresh = trainer.refresher.version
+    losses = [m["loss"] for m in steps]
+    if len(steps) != n_steps or not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"{tag}: {len(steps)} steps, losses {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"{tag}: loss did not fall: {losses[0]} → {losses[-1]}")
+    if (n_refresh, len(installs)) != expect or pending is None:
+        raise AssertionError(f"{tag}: {n_refresh} refreshes, {len(installs)} installs, "
+                             f"pending {pending is not None}; expected {expect}, one staged")
+    sums = [m["weight_sum"] for m in installs]
+    sums.append(float(np.sum(pending["weights"], dtype=np.float64)))
+    if any(abs(v - LM_DOCS) > 1e-3 for v in sums):
+        raise AssertionError(f"{tag}: Σγ per published selection {sums}, expected {LM_DOCS}")
+    if launches["ce_proxy"] != n_refresh * pool_batches:
+        raise AssertionError(f"{tag}: ce_proxy launched {launches}; expected "
+                             f"{pool_batches} per refresh × {n_refresh}")
+    step_s = statistics.median(m["time_s"] for m in steps[2:])
+    refreshes = installs + [{"version": pending["version"], **pending["meta"]}]
+    per = [(r["version"], round(r["extract_time_s"], 3), round(r["selection_time_s"], 3))
+           for r in refreshes]
+    stalls = [round(m["install_stall_s"], 3) for m in installs]
+    log(f"[6] {tag}: {LM_ARCH} Trainer.run, refresh_mode={mode!r}: {n_steps} steps of "
+        f"{LM_BATCH}×{LM_SEQ} tokens in {total_s:.1f}s; loss {losses[0]:.4f} → "
+        f"{losses[-1]:.4f}; coreset {installs[-1]['coreset_size']}/{LM_DOCS} docs; Σγ per "
+        f"published selection {sums}; launches {launches}")
+    log(f"[6] {tag}: median {step_s:.4f} s/step ({LM_BATCH * LM_SEQ / step_s:.0f} "
+        f"tokens/s); per refresh (version, extract s, select s): {per}; install stalls "
+        f"{stalls} s; max_memory_allocated {peak_gb:.2f} GB; {card}")
+    del trainer
+    torch.cuda.empty_cache()
+    left_gb = torch.cuda.memory_allocated() / 1e9
+    if left_gb > FREED_GB:
+        raise AssertionError(f"{tag}: {left_gb:.2f} GB still allocated after the "
+                             "trainer was deleted")
+    return {"losses": losses, "launches": launches["ce_proxy"]}
+
+
 def main() -> None:
     import torch
 
@@ -155,23 +390,23 @@ def main() -> None:
     from repro_torch.core.proxy import convex_feature_proxy
     from repro_torch.data.synthetic import make_classification
     from repro_torch.examples.quickstart import logistic, schedule_for
-    from repro_torch.kernels import _build, fl_gains as kfl, ops
+    from repro_torch.kernels import _build, ce_proxy as kce, fl_gains as kfl, ops
     from repro_torch.optim import ig_run
 
     dev = torch.device("cuda")
     name = torch.cuda.get_device_name(0)
     card = card_line()
-    fp32_peak, mem_bw = peaks_for(name)
+    fp32_peak, bf16_peak, mem_bw = peaks_for(name)
     log(f"[0] card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}; "
         f"TF32 off")
     t_start = time.perf_counter()
 
     # -- 1. build -----------------------------------------------------------
     t0 = time.perf_counter()
-    lib, text, secs = _build.build()
-    regs = [ln.strip() for ln in text.splitlines() if "registers" in ln]
-    log(f"[1] built {_build.SOURCE.name} -> {lib.name} in {secs:.2f}s (nvcc); "
-        f"ptxas: {' | '.join(regs)}")
+    for src, (lib, text, secs) in _build.build_all().items():
+        regs = [ln.strip() for ln in text.splitlines() if "registers" in ln]
+        log(f"[1] built {src}.cu -> {lib.name} in {secs:.2f}s (nvcc); "
+            f"ptxas: {' | '.join(regs)}")
     log(f"[1] build phase {time.perf_counter() - t0:.2f}s")
 
     # -- 2. kernels against their plain versions ----------------------------
@@ -242,7 +477,7 @@ def main() -> None:
     cur = torch.zeros(n, device=dev)
     chosen = torch.zeros(n, dtype=torch.bool, device=dev)
     madj = (d_max - cur).contiguous()
-    m_blocks = -(-n // _build.library().fl_gains_block_m())
+    m_blocks = -(-n // _build.library("fl_gains").fl_gains_block_m())
     ops_count = n * n * (2 * d + 8)  # per pair: d FMAs + norms, sqrt, relu, add
     io_bytes = {
         "fl_gains": 4 * (2 * n * d + 3 * n) + 4 * n,
@@ -267,6 +502,8 @@ def main() -> None:
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
         }
         log(f"[2] {kname} at n=m={n}, d={d}: {results[kname]}")
+    results["ce_proxy"] = check_ce_proxy(torch, ops, kce, dev, gen,
+                                         (fp32_peak, bf16_peak, mem_bw))
 
     # -- 3. select: the main path -------------------------------------------
     x_np, y = make_classification(N_MAIN, D_MAIN, 2, seed=0)
@@ -375,25 +612,48 @@ def main() -> None:
         log(f"[4] train {arm}: {len(idx)} steps/epoch, {secs:.3f}s/epoch, loss "
             f"{loss:.6f} after {TRAIN_EPOCHS} epochs (w0: {loss0:.6f} = log 2)")
 
-    # -- 5. report ----------------------------------------------------------
+    # -- 5. LM proxies at full width --------------------------------------
+    full_width_proxy_check(torch, ops, card, dev)
+
+    # -- 6. LM coreset training: the slice-2 main path ----------------------
+    sync = train_lm(torch, ops, card, dev, "sync", LM_STEPS, (3, 2), "main path")
+    results["ce_proxy"]["launches"] = sync["launches"]
+    # the trainer's default mode: the first selection overlaps epoch 0
+    asyn = train_lm(torch, ops, card, dev, "async", LM_ASYNC_STEPS, (2, 1), "async")
+    # Both modes train on the full data until the first install, from the
+    # same seed: bf16 steps through cuBLAS and the embedding's scattered
+    # backward need not repeat bit for bit, so a relative 1e-2.
+    n0 = LM_DOCS // LM_BATCH
+    drift = max(abs(a - b) / abs(b) for a, b in zip(asyn["losses"][:n0], sync["losses"][:n0]))
+    if drift > 1e-2:
+        raise AssertionError(f"async and sync epoch-0 losses differ by {drift:.3e} (rel)")
+    log(f"[6] async against sync, epoch 0: largest relative loss difference {drift:.3e}")
+    max_err["ce_proxy"] = results["ce_proxy"]["max_abs_err"]
+
+    # -- 7. report ----------------------------------------------------------
     replaces = {
         "fl_gains": "src/repro/kernels/fl_gains.py:106",
         "fl_gains_argmax": "src/repro/kernels/fl_gains.py:197",
+        "ce_proxy": "src/repro/kernels/ce_proxy.py:113",
     }
+    sources = {"fl_gains": "src/repro_torch/kernels/csrc/fl_gains.cu",
+               "fl_gains_argmax": "src/repro_torch/kernels/csrc/fl_gains.cu",
+               "ce_proxy": "src/repro_torch/kernels/csrc/ce_proxy.cu"}
     results["fl_gains_argmax"]["launches"] = main_launches["fl_gains_argmax"]
     kernels = []
-    for kname in ("fl_gains_argmax", "fl_gains"):
+    for kname in ("fl_gains_argmax", "fl_gains", "ce_proxy"):
         r = results[kname]
         kernels.append({
             "name": kname, "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/fl_gains.cu",
+            "source": sources[kname],
             "replaces": replaces[kname], "launches": r["launches"],
             "max_abs_err": max_err[kname], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None,
         })
     if any(k["launches"] < 1 for k in kernels):
         raise AssertionError(f"a kernel of the path was never launched: {kernels}")
-    log(f"[5] total {time.perf_counter() - t_start:.1f}s")
+    log(f"[7] ce_proxy fp32 at the main-path shape: {results['ce_proxy']['fp32']}")
+    log(f"[7] total {time.perf_counter() - t_start:.1f}s")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

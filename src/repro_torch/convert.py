@@ -2,8 +2,9 @@
 
 No counterpart in ``repro``: this module takes the reference package's
 outputs as plain numpy arrays and dicts (``EngineConfig.to_dict()``,
-``CoresetSelection`` fields, the logistic-regression weight vector) and
-turns them into the port's objects.  It never imports JAX.
+``CoresetSelection`` fields, the logistic-regression weight vector, an LM
+``init_params`` tree) and turns them into the port's objects.  It never
+imports JAX.
 """
 from __future__ import annotations
 
@@ -19,10 +20,14 @@ __all__ = [
     "engine_config_from_reference",
     "selection_from_reference",
     "params_from_reference",
+    "PROXY_IMPL_FROM_REFERENCE",
+    "model_params_from_reference",
 ]
 
 # The reference's gains implementations and their counterparts here.
 GAINS_IMPL_FROM_REFERENCE = {"jax": "torch", "pallas": "cuda", "auto": "auto"}
+# The reference's select-step proxy heads (``make_select_step(proxy_impl)``).
+PROXY_IMPL_FROM_REFERENCE = {"pallas": "cuda", "einsum": "einsum", "auto": "auto"}
 
 
 def engine_config_from_reference(d: dict) -> EngineConfig:
@@ -88,3 +93,49 @@ def params_from_reference(w, device: str | torch.device = "cuda") -> torch.Tenso
     if w.ndim != 1:
         raise ValueError(f"expected a (d,) weight vector, got shape {w.shape}")
     return torch.from_numpy(w).to(resolve_device(device))
+
+
+def _flat_names(tree: dict, prefix: str = "") -> dict:
+    out = {}
+    for k, v in tree.items():
+        name = f"{prefix}{k}"
+        if isinstance(v, dict):
+            out.update(_flat_names(v, name + "."))
+        else:
+            out[name] = v
+    return out
+
+
+def model_params_from_reference(tree: dict, cfg, device: str | torch.device = "cuda") -> dict:
+    """A reference ``models.init_params`` tree (leaves as numpy arrays) →
+    the port's flat fp32 parameter dict on ``device``.
+
+    The stacked ``stack.scanned`` periods (leading axis = period index)
+    and the ``stack.remainder`` list become ``layers.<i>.*`` in layer
+    order; nested dicts become dotted names; attention weights keep their
+    (d, H, hd) / (H, hd, d) layouts; the (d, padded_vocab) ``unembed`` is
+    transposed to the port's vocab-major (padded_vocab, d).
+    """
+    dev = resolve_device(device)
+    period = len(cfg.block_pattern)
+    layers: list[dict] = []
+    scanned = tree["stack"]["scanned"]
+    if scanned is not None:
+        n_full = np.asarray(_flat_names(scanned[0])["norm1.scale"]).shape[0]
+        for j in range(n_full):
+            for i in range(period):
+                layers.append({k: np.asarray(v)[j] for k, v in _flat_names(scanned[i]).items()})
+    layers.extend(_flat_names(p) for p in tree["stack"]["remainder"])
+    if len(layers) != cfg.n_layers:
+        raise ValueError(f"tree holds {len(layers)} layers, config has {cfg.n_layers}")
+    out = {}
+    for i, layer in enumerate(layers):
+        for k, v in layer.items():
+            out[f"layers.{i}.{k}"] = v
+    out["embed"] = tree["embed"]
+    out["final_norm.scale"] = tree["final_norm"]["scale"]
+    if "unembed" in tree:
+        out["unembed"] = np.asarray(tree["unembed"]).T
+    return {
+        k: torch.from_numpy(np.array(v, np.float32)).to(dev) for k, v in out.items()
+    }

@@ -1,14 +1,22 @@
 """Gradient-proxy features for CRAIG (paper Eq. 9 and Eq. 16).
 
 Port of ``repro.core.proxy`` (``convex_feature_proxy``,
-``classifier_last_layer_proxy``).  The LM proxy and exact per-example
-gradients come with the models (ROADMAP.md queue 1, slice 2).
+``classifier_last_layer_proxy``, ``lm_unembed_input_proxy``,
+``exact_per_example_grads``).  The LM proxy takes the port's vocab-major
+(V, D) unembedding; the fused kernel path is ``kernels.ops.ce_proxy``.
 """
 from __future__ import annotations
 
+from typing import Callable
+
 import torch
 
-__all__ = ["convex_feature_proxy", "classifier_last_layer_proxy"]
+__all__ = [
+    "convex_feature_proxy",
+    "classifier_last_layer_proxy",
+    "lm_unembed_input_proxy",
+    "exact_per_example_grads",
+]
 
 
 def convex_feature_proxy(
@@ -47,3 +55,80 @@ def classifier_last_layer_proxy(
     p = torch.softmax(logits.float(), dim=-1)
     y = torch.nn.functional.one_hot(labels, logits.shape[-1]).to(torch.float32)
     return p - y
+
+
+@torch.no_grad()
+def lm_unembed_input_proxy(
+    hidden: torch.Tensor,
+    unembed: torch.Tensor,
+    labels: torch.Tensor,
+    mask: torch.Tensor | None = None,
+    chunk: int = 512,
+    valid_v: int | None = None,
+    compute_dtype: torch.dtype = torch.float32,
+) -> torch.Tensor:
+    """Pooled gradient w.r.t. the unembedding input, per sequence.
+
+    g_b = Σ_t m_{b,t} (softmax(h_{b,t} Wᵀ) − onehot(y_{b,t})) W / max(Σ_t m_{b,t}, 1)
+
+    over sequence chunks of ``chunk`` tokens, so the (B, chunk, V) logits
+    are transient.  As in the reference, both products run in
+    ``compute_dtype`` (their outputs rounded to it), softmax and the pooled
+    accumulator in fp32.  The reference pads T to a chunk multiple with
+    masked rows; the ragged last chunk here adds the same (zero) terms.
+
+    Args:
+      hidden: (B, T, D) final hidden states.
+      unembed: (V, D) vocab-major unembedding.
+      labels: (B, T) integer targets.
+      mask: optional (B, T) {0, 1} validity mask.
+      valid_v: real vocab size when W is padded; columns past it are −∞.
+    Returns:
+      (B, D) fp32 proxy features.
+    """
+    B, T, D = hidden.shape
+    V = unembed.shape[0]
+    if mask is None:
+        mask = torch.ones((B, T), device=hidden.device)
+    mask = mask.float()
+    w = unembed.to(compute_dtype)
+    pad_bias = None
+    if valid_v is not None and valid_v < V:
+        pad_bias = torch.where(torch.arange(V, device=hidden.device) < valid_v, 0.0, -1e30)
+    acc = torch.zeros((B, D), device=hidden.device)
+    for lo in range(0, T, chunk):
+        h, y, m = hidden[:, lo:lo + chunk], labels[:, lo:lo + chunk], mask[:, lo:lo + chunk]
+        logits = (h.to(compute_dtype) @ w.T).float()
+        if pad_bias is not None:
+            logits = logits + pad_bias
+        delta = torch.softmax(logits, dim=-1)
+        del logits
+        y = y.long()
+        ok = (y >= 0) & (y < V)  # one_hot of an out-of-range label is empty
+        delta.scatter_add_(-1, torch.where(ok, y, 0)[..., None], -ok.float()[..., None])
+        g = (delta.to(compute_dtype) @ w).float()
+        acc += torch.einsum("bcd,bc->bd", g, m)
+    denom = torch.clamp(mask.sum(dim=1), min=1.0)
+    return acc / denom[:, None]
+
+
+def exact_per_example_grads(
+    loss_fn: Callable[..., torch.Tensor],
+    params,
+    xs: torch.Tensor,
+    ys: torch.Tensor,
+) -> torch.Tensor:
+    """Oracle: exact flattened per-example gradients, (n, P) fp32.
+
+    ``loss_fn(params, x_i, y_i)`` returns one example's scalar loss;
+    ``params`` is a tensor or a dict of tensors (flattened in sorted-key
+    order, as the reference's pytree leaves are).
+    """
+    grad_fn = torch.func.grad(loss_fn)
+
+    def flat(x, y):
+        g = grad_fn(params, x, y)
+        leaves = [g[k] for k in sorted(g)] if isinstance(g, dict) else [g]
+        return torch.cat([l.reshape(-1) for l in leaves]).float()
+
+    return torch.func.vmap(flat)(xs, ys)

@@ -1,5 +1,12 @@
-"""Synthetic data (port of ``repro.data``; the LM token stream and the
-pipeline come with slice 2)."""
-from repro_torch.data.synthetic import make_classification
+"""Synthetic data and the coreset-aware pipeline (port of ``repro.data``)."""
+from repro_torch.data.pipeline import CoresetSampler, GlobalBatcher, Prefetcher, to_device
+from repro_torch.data.synthetic import TokenStream, make_classification
 
-__all__ = ["make_classification"]
+__all__ = [
+    "make_classification",
+    "TokenStream",
+    "CoresetSampler",
+    "GlobalBatcher",
+    "Prefetcher",
+    "to_device",
+]

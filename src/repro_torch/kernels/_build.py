@@ -1,13 +1,15 @@
 """Build and bind the port's CUDA kernels (no counterpart in ``repro``).
 
-The kernels live in one source, ``csrc/fl_gains.cu``, with a plain C
-interface.  At first use it is compiled with ``nvcc`` for ``sm_90a`` into
-a shared library under the repository's ``build/`` directory, named by a
-hash of the source, and loaded with ``ctypes``.  Nothing is compiled or loaded at import time, so
-the package imports on machines without CUDA.
+Every ``csrc/*.cu`` source has a plain C interface.  At first use each is
+compiled with ``nvcc`` for ``sm_90a`` into its own shared library under
+the repository's ``build/`` directory, named by a hash of the source, and
+loaded with ``ctypes``; :func:`build_all` starts one ``nvcc`` per source
+at once.  Nothing is compiled or loaded at import time, so the package
+imports on machines without CUDA.
 
 Every C entry returns ``cudaGetLastError()`` after its launch; the
-wrappers in :mod:`repro_torch.kernels.fl_gains` raise when it is not 0.
+wrappers raise when it is not 0.  :data:`LAUNCHES` counts kernel launches
+per kernel, bumped only by the launch wrappers.
 """
 from __future__ import annotations
 
@@ -18,24 +20,39 @@ import os
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
-__all__ = ["SOURCE", "BUILD_DIR", "build", "library", "check"]
+__all__ = ["CSRC", "BUILD_DIR", "SIGNATURES", "LAUNCHES", "source", "build",
+           "build_all", "library", "check"]
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "fl_gains.cu"
+CSRC = Path(__file__).resolve().parent / "csrc"
 # <repo>/src/repro_torch/kernels/_build.py -> <repo>/build
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 
+# Kernel launches per kernel, bumped only where a kernel is launched.
+LAUNCHES: dict[str, int] = {"fl_gains": 0, "fl_gains_argmax": 0, "ce_proxy": 0}
+
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# C signatures of the source's entry points.
-SIGNATURES: dict[str, tuple] = {
-    "fl_gains_block_m": (),
-    "fl_gains_f32": (_P,) * 6 + (_I,) * 3 + (_P,),
-    "fl_gains_argmax_f32": (_P,) * 9 + (_I,) * 3 + (_P,),
-    "fl_gains_argmax_bf16": (_P,) * 9 + (_I,) * 3 + (_P,),
+# C signatures of each source's entry points.
+SIGNATURES: dict[str, dict[str, tuple]] = {
+    "fl_gains": {
+        "fl_gains_block_m": (),
+        "fl_gains_f32": (_P,) * 6 + (_I,) * 3 + (_P,),
+        "fl_gains_argmax_f32": (_P,) * 9 + (_I,) * 3 + (_P,),
+        "fl_gains_argmax_bf16": (_P,) * 9 + (_I,) * 3 + (_P,),
+    },
+    "ce_proxy": {
+        "ce_proxy_f32": (_P,) * 4 + (_I,) * 4 + (_P,),
+        "ce_proxy_bf16": (_P,) * 4 + (_I,) * 4 + (_P,),
+    },
 }
+
+
+def source(name: str) -> Path:
+    return CSRC / f"{name}.cu"
 
 
 def _nvcc() -> str:
@@ -53,17 +70,16 @@ def _nvcc() -> str:
     )
 
 
-def _target() -> Path:
-    digest = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{SOURCE.stem}-{digest}.so"
+def _target(name: str) -> Path:
+    digest = hashlib.sha256(source(name).read_bytes()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
-def build() -> tuple[Path, str, float]:
-    """Compile the source if its hashed library is missing.
+def build(name: str) -> tuple[Path, str, float]:
+    """Compile source ``name`` if its hashed library is missing.
 
-    Returns (library path, compiler output, seconds spent compiling).
-    """
-    out = _target()
+    Returns (library path, compiler output, seconds spent compiling)."""
+    out = _target(name)
     log = out.with_suffix(".log")
     if out.exists():
         return out, log.read_text() if log.exists() else "", 0.0
@@ -72,26 +88,31 @@ def build() -> tuple[Path, str, float]:
     cmd = [
         _nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
         "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-        "-o", str(tmp), str(SOURCE),
+        "-o", str(tmp), str(source(name)),
     ]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
+    proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     seconds = time.perf_counter() - t0
-    text = proc.stdout + proc.stderr
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed for {SOURCE.name}:\n{text}")
+        raise RuntimeError(f"nvcc failed for {source(name).name}:\n{proc.stdout}")
     os.replace(tmp, out)
-    log.write_text(text)
-    return out, text, seconds
+    log.write_text(proc.stdout)
+    return out, proc.stdout, seconds
+
+
+def build_all() -> dict[str, tuple[Path, str, float]]:
+    """Build every source, one ``nvcc`` each, all started together."""
+    with ThreadPoolExecutor(len(SIGNATURES)) as pool:
+        return dict(zip(SIGNATURES, pool.map(build, SIGNATURES)))
 
 
 @functools.cache
-def library() -> ctypes.CDLL:
-    """The loaded kernel library, built at first use."""
-    path, _, _ = build()
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library of source ``name``, built at first use."""
+    path, _, _ = build(name)
     lib = ctypes.CDLL(str(path))
-    for fn, argtypes in SIGNATURES.items():
+    for fn, argtypes in SIGNATURES[name].items():
         f = getattr(lib, fn)
         f.argtypes = list(argtypes)
         f.restype = ctypes.c_int

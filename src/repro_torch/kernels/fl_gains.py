@@ -29,8 +29,8 @@ __all__ = [
     "PLAIN_BLOCK_M",
 ]
 
-# Kernel launches per kernel, bumped only where a kernel is launched.
-LAUNCHES: dict[str, int] = {"fl_gains": 0, "fl_gains_argmax": 0}
+# Kernel launches per kernel (shared by every kernel module).
+LAUNCHES = _build.LAUNCHES
 
 TILE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -97,7 +97,7 @@ def fl_gains_cuda(x, e, madj, sqx, sqe) -> torch.Tensor:
       (m,) fp32 gains.
     """
     n, m, d = _check_operands(x, e, madj, sqx, sqe, torch.float32)
-    lib = _build.library()
+    lib = _build.library("fl_gains")
     gains = torch.empty((m,), dtype=torch.float32, device=x.device)
     status = lib.fl_gains_f32(
         x.data_ptr(), e.data_ptr(), madj.data_ptr(), sqx.data_ptr(),
@@ -127,7 +127,7 @@ def fl_gains_argmax_cuda(x, e, madj, sqx, sqe, chosen):
         raise ValueError(f"unsupported tile dtype {x.dtype}")
     n, m, d = _check_operands(x, e, madj, sqx, sqe, x.dtype)
     _require(chosen, "chosen", torch.bool, (m,), x.device)
-    lib = _build.library()
+    lib = _build.library("fl_gains")
     m_blocks = -(-m // lib.fl_gains_block_m())
     gains = torch.empty((m,), dtype=torch.float32, device=x.device)
     part_g = torch.empty((m_blocks,), dtype=torch.float32, device=x.device)

@@ -1,12 +1,13 @@
-"""Public wrappers for the greedy-sweep kernels: dispatch and input checks.
+"""Public kernel wrappers: dispatch and input checks.
 
-Port of ``repro.kernels.ops`` (``fl_gains``, ``fl_gains_argmax``).  The
-reference pads to block and lane multiples and picks Pallas interpret mode
-off the TPU; here the CUDA kernels mask ragged edges themselves, so the
-wrappers only arrange operands and dispatch:
+Port of ``repro.kernels.ops`` (``fl_gains``, ``fl_gains_argmax``,
+``ce_proxy``).  The reference pads to block and lane multiples and picks
+Pallas interpret mode off the TPU; here the CUDA kernels mask ragged edges
+themselves, so the wrappers only arrange operands and dispatch
+(``gains_impl``, or ``impl`` for ``ce_proxy``):
 
-  * ``gains_impl='auto'``: the CUDA kernel for CUDA tensors, the plain
-    twin for CPU tensors;
+  * ``'auto'``: the CUDA kernel for CUDA tensors, the plain twin for CPU
+    tensors;
   * ``'cuda'``: the kernel; raises for tensors that are not on a card;
   * ``'torch'``: the plain twin, on whatever device the tensors are.
 
@@ -17,11 +18,14 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import _build
+from repro_torch.kernels import ce_proxy as _ce
 from repro_torch.kernels import fl_gains as _fl
 
-__all__ = ["fl_gains", "fl_gains_argmax", "resolve_impl", "LAUNCHES", "TILE_DTYPES"]
+__all__ = ["fl_gains", "fl_gains_argmax", "ce_proxy", "resolve_impl", "LAUNCHES",
+           "TILE_DTYPES"]
 
-LAUNCHES = _fl.LAUNCHES
+LAUNCHES = _build.LAUNCHES
 TILE_DTYPES = _fl.TILE_DTYPES
 
 GAINS_IMPLS = ("auto", "cuda", "torch")
@@ -122,4 +126,46 @@ def fl_gains_argmax(
     return _fl.fl_gains_argmax_cuda(
         x_t.contiguous(), e_t.contiguous(), madj, sqx.float().contiguous(),
         sqe.float().contiguous(), chosen.bool().contiguous(),
+    )
+
+
+def ce_proxy(
+    hidden: torch.Tensor,
+    unembed: torch.Tensor,
+    labels: torch.Tensor,
+    *,
+    valid_v: int | None = None,
+    compute_dtype: torch.dtype = torch.float32,
+    impl: str = "auto",
+) -> torch.Tensor:
+    """Fused per-token CRAIG proxy g = softmax(h Wᵀ) W − W[y] → (T, D) fp32.
+
+    Args:
+      hidden: (T, D) hidden states (any float dtype; cast to
+        ``compute_dtype``).
+      unembed: (V, D) vocab-major unembedding — the transpose of the
+        reference's (D, V) ``unembed`` argument.
+      labels: (T,) integer labels.
+      valid_v: real vocab size when W is padded (columns at or past it are
+        −∞); None means all V columns are real.
+      compute_dtype: dtype of the two matrix products (torch.float32 or
+        torch.bfloat16); accumulation and the softmax state stay fp32.
+        On a card the bf16 kernel is the production route (D ≤ 2048).
+        The fp32 kernel is for parity with the reference only: it runs
+        on the CUDA cores and is several times slower than the plain
+        twin (``impl='torch'``), whose fp32 GEMMs go through cuBLAS; PERF.md
+        has the times.
+      impl: 'auto' | 'cuda' | 'torch', as ``gains_impl`` above.
+    """
+    if compute_dtype not in _ce.COMPUTE_DTYPES:
+        raise ValueError(f"unsupported compute_dtype {compute_dtype}")
+    V = unembed.shape[0]
+    vv = V if valid_v is None else int(valid_v)
+    if not 1 <= vv <= V:
+        raise ValueError(f"valid_v={valid_v} outside [1, V={V}]")
+    if resolve_impl(impl, hidden.device) == "torch":
+        return _ce.ce_proxy_torch(hidden, unembed, labels, vv, compute_dtype)
+    return _ce.ce_proxy_cuda(
+        hidden.to(compute_dtype).contiguous(), unembed.to(compute_dtype).contiguous(),
+        labels.to(torch.int32).contiguous(), vv,
     )

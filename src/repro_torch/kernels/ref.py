@@ -1,6 +1,7 @@
 """Plain-torch oracles for the greedy-sweep kernels.
 
-Port of ``repro.kernels.ref`` (``pairwise_l2_ref``, ``fl_gains_ref``): the
+Port of ``repro.kernels.ref`` (``pairwise_l2_ref``, ``fl_gains_ref``,
+``ce_proxy_ref``): the
 dense allclose ground truth the kernels and their blockwise twins are held
 against.
 """
@@ -8,7 +9,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["pairwise_l2_ref", "fl_gains_ref"]
+__all__ = ["pairwise_l2_ref", "fl_gains_ref", "ce_proxy_ref"]
 
 
 def pairwise_l2_ref(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -27,3 +28,13 @@ def fl_gains_ref(
     """gains[c] = Σ_i relu((d_max − ‖x_i − e_c‖) − cur_max_i), fp32 (m,)."""
     sim = d_max - pairwise_l2_ref(x, e)
     return torch.sum(torch.clamp(sim - cur_max.float()[:, None], min=0.0), dim=0)
+
+
+def ce_proxy_ref(hidden: torch.Tensor, unembed: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """g_t = (softmax(h_t Wᵀ) − onehot(y_t)) W, fp32 (T, D); ``unembed`` is
+    vocab-major (V, D)."""
+    h = hidden.float()
+    w = unembed.float()
+    p = torch.softmax(h @ w.T, dim=-1)
+    delta = p - torch.nn.functional.one_hot(labels.long(), w.shape[0]).float()
+    return delta @ w

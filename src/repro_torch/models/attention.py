@@ -1,0 +1,150 @@
+"""Causal self-attention: GQA/MQA/MHA with RoPE, qk-norm and QKV bias.
+
+Port of the training path of ``repro.models.attention``: the projections
+into (d, H, hd) (``_project_qkv``, with qk-norm after the projection and
+before RoPE), the GQA head-group repeat (``_repeat_kv``), the dense path
+(``_dense_attention``) and the flash-style blockwise path
+(``_blockwise_attention``, online softmax over KV chunks, taken above
+``blockwise_threshold``).  These are plain tensor code in the reference
+too (no Pallas kernel), so they are plain torch here.  Sliding windows,
+M-RoPE, prefill and decode are not ported (ROADMAP.md queue 1).
+
+Parameters of one layer's mixer: ``wq`` (d, H, hd), ``wk``/``wv``
+(d, KV, hd), ``wo`` (H, hd, d), optional ``bq``/``bk``/``bv`` and
+``q_norm``/``k_norm`` scales (hd,).
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+
+from repro_torch.models.layers import apply_rope, dense_init, rms_norm
+
+__all__ = ["AttentionConfig", "init_attention", "attention"]
+
+_NEG_INF = -1e30
+
+
+@dataclasses.dataclass(frozen=True)
+class AttentionConfig:
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_head: int
+    qkv_bias: bool = False
+    qk_norm: bool = False
+    rope_theta: float = 10000.0
+    blockwise_threshold: int = 8192  # blockwise above this sequence length
+    chunk_q: int = 1024
+    chunk_kv: int = 1024
+
+
+def init_attention(cfg: AttentionConfig, generator, device) -> dict:
+    d, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    p = {
+        "wq": dense_init((d, H * hd), generator, device).reshape(d, H, hd),
+        "wk": dense_init((d, KV * hd), generator, device).reshape(d, KV, hd),
+        "wv": dense_init((d, KV * hd), generator, device).reshape(d, KV, hd),
+        "wo": dense_init((H * hd, d), generator, device).reshape(H, hd, d),
+    }
+    if cfg.qkv_bias:
+        p["bq"] = torch.zeros((H, hd), device=device)
+        p["bk"] = torch.zeros((KV, hd), device=device)
+        p["bv"] = torch.zeros((KV, hd), device=device)
+    if cfg.qk_norm:
+        p["q_norm.scale"] = torch.ones((hd,), device=device)
+        p["k_norm.scale"] = torch.ones((hd,), device=device)
+    return p
+
+
+def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """einsum('btd,dhk->bthk') as one matrix product in ``x.dtype``."""
+    d, h, k = w.shape
+    return (x @ w.to(x.dtype).reshape(d, h * k)).unflatten(-1, (h, k))
+
+
+def _project_qkv(p: dict, cfg: AttentionConfig, x, positions):
+    """x (B, T, D) → q (B, T, H, hd), k/v (B, T, KV, hd), RoPE applied."""
+    dtype = x.dtype
+    q, k, v = _proj(x, p["wq"]), _proj(x, p["wk"]), _proj(x, p["wv"])
+    if cfg.qkv_bias:
+        q = q + p["bq"].to(dtype)
+        k = k + p["bk"].to(dtype)
+        v = v + p["bv"].to(dtype)
+    if cfg.qk_norm:
+        q = rms_norm(p["q_norm.scale"], q)
+        k = rms_norm(p["k_norm.scale"], k)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def _repeat_kv(k: torch.Tensor, n_rep: int) -> torch.Tensor:
+    """(B, T, KV, hd) → (B, T, KV·n_rep, hd) by head-group broadcast."""
+    if n_rep == 1:
+        return k
+    b, t, kv, hd = k.shape
+    return k[:, :, :, None, :].expand(b, t, kv, n_rep, hd).reshape(b, t, kv * n_rep, hd)
+
+
+def _dense_attention(q, k, v, scale: float, causal_offset: int = 0):
+    """q (B,Tq,H,hd), k/v (B,Tk,H,hd); query i attends keys ≤ i + offset."""
+    Tq, Tk = q.shape[1], k.shape[1]
+    scores = torch.einsum("bqhk,bshk->bhqs", q, k).float() * scale
+    qi = torch.arange(Tq, device=q.device)[:, None] + causal_offset
+    ki = torch.arange(Tk, device=q.device)[None, :]
+    scores = torch.where(ki <= qi, scores, _NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    return torch.einsum("bhqs,bshk->bqhk", probs, v)
+
+
+def _blockwise_attention(q, k, v, scale: float, cfg: AttentionConfig):
+    """Online softmax over KV chunks (exact; chunks that lie wholly in a
+    query chunk's future are skipped)."""
+    B, Tq, H, hd = q.shape
+    Tk = k.shape[1]
+    cq = math.gcd(min(cfg.chunk_q, Tq), Tq)
+    ckv = math.gcd(min(cfg.chunk_kv, Tk), Tk)
+    outs = []
+    for qi in range(Tq // cq):
+        qc = q[:, qi * cq:(qi + 1) * cq]
+        m = torch.full((B, H, cq, 1), _NEG_INF, device=q.device)
+        l = torch.zeros((B, H, cq, 1), device=q.device)
+        acc = torch.zeros((B, H, cq, hd), device=q.device)
+        qpos = qi * cq + torch.arange(cq, device=q.device)[:, None]
+        for kj in range(Tk // ckv):
+            if kj * ckv > (qi + 1) * cq - 1:
+                break  # this and every later chunk is in the future
+            ks = k[:, kj * ckv:(kj + 1) * ckv]
+            vs = v[:, kj * ckv:(kj + 1) * ckv]
+            s = torch.einsum("bqhk,bshk->bhqs", qc, ks).float() * scale
+            kpos = kj * ckv + torch.arange(ckv, device=q.device)[None, :]
+            mask = kpos <= qpos
+            s = torch.where(mask, s, _NEG_INF)
+            m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+            p = torch.exp(s - m_new) * mask  # all-masked rows: exp(0) → 0
+            corr = torch.exp(torch.clamp(m - m_new, max=0.0))
+            l = l * corr + p.sum(dim=-1, keepdim=True)
+            pv = torch.einsum("bhqs,bshk->bhqk", p.to(q.dtype), vs)
+            acc = acc * corr + pv.float()
+            m = m_new
+        out = acc / torch.clamp(l, min=1e-30)
+        outs.append(out.transpose(1, 2).to(q.dtype))  # (B, cq, H, hd)
+    return torch.cat(outs, dim=1)
+
+
+def attention(p: dict, cfg: AttentionConfig, x: torch.Tensor, positions: torch.Tensor):
+    """Causal self-attention over x (B, T, D) → (B, T, D)."""
+    B, T, _ = x.shape
+    q, k, v = _project_qkv(p, cfg, x, positions)
+    n_rep = cfg.n_heads // cfg.n_kv_heads
+    k, v = _repeat_kv(k, n_rep), _repeat_kv(v, n_rep)
+    scale = float(1.0 / torch.sqrt(torch.tensor(cfg.d_head, dtype=torch.float32)))
+    if T > cfg.blockwise_threshold:
+        out = _blockwise_attention(q, k, v, scale, cfg)
+    else:
+        out = _dense_attention(q, k, v, scale)
+    H, hd, d = p["wo"].shape
+    return out.reshape(B, T, H * hd) @ p["wo"].to(x.dtype).reshape(H * hd, d)

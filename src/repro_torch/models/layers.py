@@ -1,0 +1,95 @@
+"""Shared model layers: norms, rotary embeddings, activations, init.
+
+Port of ``repro.models.layers`` (``rms_norm``, ``layer_norm``,
+``rope_frequencies``, ``apply_rope`` with the half-split ``_rope_rotate``,
+``activation_fn``, ``dense_init``).  Functions take plain tensors; a norm's
+parameter is its (d,) scale tensor.  dtype rules are the reference's:
+norms reduce in fp32 and normalise in the input's dtype, RoPE rotates in
+fp32 and casts back.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+__all__ = [
+    "rms_norm",
+    "layer_norm",
+    "rope_frequencies",
+    "apply_rope",
+    "activation_fn",
+    "dense_init",
+]
+
+
+def rms_norm(scale: torch.Tensor, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """RMSNorm: fp32 mean of squares, normalise in ``x.dtype``."""
+    dtype = x.dtype
+    var = torch.mean(torch.square(x.float()), dim=-1, keepdim=True)
+    inv = torch.rsqrt(var + eps).to(dtype)
+    return x * inv * scale.to(dtype)
+
+
+def layer_norm(scale: torch.Tensor, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm without bias: fp32 statistics, normalise in ``x.dtype``."""
+    dtype = x.dtype
+    x32 = x.float()
+    mu = torch.mean(x32, dim=-1, keepdim=True)
+    var = torch.var(x32, dim=-1, keepdim=True, unbiased=False)
+    inv = torch.rsqrt(var + eps).to(dtype)
+    return (x - mu.to(dtype)) * inv * scale.to(dtype)
+
+
+def dense_init(
+    shape: tuple[int, ...],
+    generator: torch.Generator,
+    device: torch.device,
+    fan: int | None = None,
+) -> torch.Tensor:
+    """fp32 master weight: truncated normal on [−2, 2] scaled by
+    1/√fan (``fan`` defaults to ``shape[0]``, the reference's fan_in)."""
+    fan = shape[0] if fan is None else fan
+    w = torch.empty(shape, dtype=torch.float32, device=device)
+    torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=generator)
+    return w.mul_(1.0 / math.sqrt(fan))
+
+
+def rope_frequencies(d_head: int, theta: float = 10000.0, device=None) -> torch.Tensor:
+    """(d_head/2,) inverse frequencies, fp32."""
+    exponents = torch.arange(0, d_head, 2, dtype=torch.float32, device=device) / d_head
+    return 1.0 / (theta ** exponents)
+
+
+def _rope_rotate(x: torch.Tensor, sin: torch.Tensor, cos: torch.Tensor) -> torch.Tensor:
+    """Half-split rotation: x = [x1, x2] → [x1·cos − x2·sin, x2·cos + x1·sin]
+    (not interleaved pairs), in fp32, cast back to ``x.dtype``."""
+    x1, x2 = torch.chunk(x, 2, dim=-1)
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10000.0) -> torch.Tensor:
+    """Standard RoPE.  x (B, T, H, d_head); positions (B, T) integer."""
+    inv = rope_frequencies(x.shape[-1], theta, device=x.device)
+    ang = positions.float()[..., None] * inv  # (B, T, d/2)
+    sin = torch.sin(ang)[:, :, None, :]
+    cos = torch.cos(ang)[:, :, None, :]
+    return _rope_rotate(x, sin, cos)
+
+
+def _relu2(x: torch.Tensor) -> torch.Tensor:
+    return torch.square(F.relu(x))
+
+
+def _gelu(x: torch.Tensor) -> torch.Tensor:
+    return F.gelu(x, approximate="tanh")  # jax.nn.gelu's default
+
+
+_ACTIVATIONS = {"gelu": _gelu, "silu": F.silu, "relu2": _relu2, "relu": F.relu}
+
+
+def activation_fn(name: str):
+    if name not in _ACTIVATIONS:
+        raise ValueError(f"unknown activation {name!r}")
+    return _ACTIVATIONS[name]

@@ -1,0 +1,372 @@
+"""Trainer: the host loop that ties CRAIG selection into LM training.
+
+Port of ``repro.train.trainer`` (``TrainerConfig``, ``Trainer``), single
+device.  Responsibilities, as in the reference:
+
+* CRAIG refresh every ``select_every_epochs`` epochs (paper §3.4): params
+  are snapshotted at the epoch boundary, proxy extraction
+  (``core.extract``, through ``make_select_step(proxy_impl)`` — the
+  ``ce_proxy`` kernel on a card) and ``CraigSelector`` selection run on the
+  refresher (a worker thread in ``'async'`` mode, inline in ``'sync'``),
+  and the published selection installs at the next epoch boundary while
+  training continues on the installed coreset;
+* warm start from the previous selection's high-gain prefix
+  (``warm_start_fraction``);
+* per-class stratification by ``dataset.class_labels`` when
+  ``craig.per_class``;
+* γ-weighted training between refreshes (the weights ride in the batch);
+* checkpoint/restart of params, optimizer state, sampler cursor, installed
+  and staged coresets and the warm-start seed (``restore_or_init``);
+* preemption: SIGTERM (or ``request_preempt``) saves at the next step
+  boundary and stops;
+* a per-step wall-clock watchdog that records stragglers.
+
+Streaming ingest (``streaming_ingest=True``) is not ported yet (ROADMAP.md
+queue 1, slice 3) and raises.  Each refresh's metadata also records the
+extraction and selection seconds separately (``extract_time_s``,
+``selection_time_s``; on a card both end in a device synchronise).
+"""
+from __future__ import annotations
+
+import dataclasses
+import signal
+import time
+import warnings
+import weakref
+from typing import Any, Callable, Literal
+
+import numpy as np
+import torch
+
+from repro_torch._device import resolve_device
+from repro_torch.checkpoint.manager import CheckpointManager
+from repro_torch.core.craig import CoresetSelection, CraigConfig, CraigSelector
+from repro_torch.core.extract import ProxyExtractor
+from repro_torch.core.refresh import AsyncRefresher, RefreshResult
+from repro_torch.data.pipeline import CoresetSampler, to_device
+from repro_torch.faults import FailurePolicy
+from repro_torch.models import loss_fn as model_loss_fn
+from repro_torch.models.config import ModelConfig
+from repro_torch.optim.optimizers import Optimizer
+from repro_torch.train.train_step import make_select_step, make_train_step
+
+__all__ = ["TrainerConfig", "Trainer"]
+
+
+@dataclasses.dataclass
+class TrainerConfig:
+    batch_size: int = 8
+    eval_every: int = 0  # steps between held-out evals (0 = never)
+    eval_batches: int = 2
+    select_every_epochs: int = 1  # CRAIG refresh cadence (0 = never)
+    craig: CraigConfig = dataclasses.field(
+        default_factory=lambda: CraigConfig(fraction=0.5, per_class=False)
+    )
+    use_craig: bool = True
+    proxy_pool_batches: int = 8  # batches of the pool scanned per refresh
+    proxy_impl: str = "auto"  # select-step CE head: auto|einsum|cuda|torch
+    extract_megabatch: int = 0  # pool batches per host assembly (0 = all)
+    extract_prefetch: bool = True  # assemble the next megabatch meanwhile
+    refresh_mode: Literal["sync", "async"] = "async"
+    warm_start_fraction: float = 0.5  # share of the budget warm-started
+    streaming_ingest: bool = False  # not ported (raises)
+    checkpoint_every: int = 50
+    checkpoint_dir: str | None = None
+    keep_checkpoints: int = 3
+    step_timeout_s: float | None = None  # straggler watchdog
+    microbatches: int = 1
+    seed: int = 0
+    refresh_failure_policy: FailurePolicy | None = None
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _weak(method: Callable) -> Callable:
+    """``method`` (bound) called through a weak reference to its object."""
+    ref, name = weakref.WeakMethod(method), method.__qualname__
+
+    def call(*args):
+        bound = ref()
+        if bound is None:
+            raise ReferenceError(f"{name}: its trainer was freed")
+        return bound(*args)
+
+    return call
+
+
+class Trainer:
+    """Single-device trainer; runs on ``device`` (the card unless the
+    caller asks for the CPU).  ``init_params_fn()`` returns the fp32
+    parameter dict on that device."""
+
+    def __init__(
+        self,
+        cfg: ModelConfig,
+        tcfg: TrainerConfig,
+        dataset,
+        optimizer: Optimizer,
+        init_params_fn: Callable[[], dict],
+        eval_dataset=None,
+        device: str | torch.device = "cuda",
+    ):
+        if tcfg.streaming_ingest:
+            raise NotImplementedError(
+                "streaming_ingest is not ported to repro_torch "
+                "(ROADMAP.md queue 1, slice 3 'Streaming')"
+            )
+        self.cfg = cfg
+        self.tcfg = tcfg
+        self.device = resolve_device(device)
+        self.dataset = dataset
+        self.eval_dataset = eval_dataset
+        self.optimizer = optimizer
+        self.sampler = CoresetSampler(dataset.n_docs, tcfg.batch_size, tcfg.seed)
+        self.train_step = make_train_step(cfg, optimizer, microbatches=tcfg.microbatches)
+        self.extractor = ProxyExtractor(
+            make_select_step(cfg, proxy_impl=tcfg.proxy_impl),
+            dataset,
+            tcfg.batch_size,
+            megabatch=tcfg.extract_megabatch or max(1, tcfg.proxy_pool_batches),
+            prefetch=tcfg.extract_prefetch,
+        )
+        self.params = init_params_fn()
+        self.opt_state = optimizer.init(self.params)
+        self.step = 0
+        self.metrics_log: list[dict] = []
+        self.straggler_events: list[int] = []
+        self._preempt = False
+        self.ckpt = (
+            CheckpointManager(tcfg.checkpoint_dir, tcfg.keep_checkpoints)
+            if tcfg.checkpoint_dir
+            else None
+        )
+        self._last_epoch_selected = -1
+        # weak callbacks: the refresher must not hold the trainer (and
+        # its parameters and optimizer state) alive in a reference cycle
+        self.refresher = AsyncRefresher(
+            _weak(self._refresh_work),
+            mode=tcfg.refresh_mode,
+            on_complete=_weak(self._publish_refresh),
+            failure_policy=tcfg.refresh_failure_policy,
+            on_failure=_weak(self._refresh_failed),
+        )
+        # previous refresh's selection in pool coordinates (the pool is a
+        # fixed stride, identical across refreshes): the warm-start seed
+        self._prev_selection: CoresetSelection | None = None
+        if tcfg.use_craig and tcfg.craig.per_class and not hasattr(dataset, "class_labels"):
+            warnings.warn(
+                "craig.per_class=True but the dataset exposes no "
+                "class_labels(idx); refreshes will fall back to flat "
+                "(unstratified) selection",
+                UserWarning,
+                stacklevel=2,
+            )
+
+    # -- preemption -----------------------------------------------------------
+
+    def install_signal_handler(self) -> None:
+        signal.signal(signal.SIGTERM, lambda *_: self.request_preempt())
+
+    def request_preempt(self) -> None:
+        self._preempt = True
+
+    # -- CRAIG refresh ---------------------------------------------------------
+
+    def _pool_indices(self) -> np.ndarray:
+        """Deterministic candidate pool: a stride over the corpus."""
+        n_pool = min(self.dataset.n_docs, self.tcfg.proxy_pool_batches * self.tcfg.batch_size)
+        stride = max(1, self.dataset.n_docs // n_pool)
+        return np.arange(0, self.dataset.n_docs, stride)[:n_pool]
+
+    def _pool_labels(self, pool_idx: np.ndarray) -> np.ndarray | None:
+        if self.tcfg.craig.per_class and hasattr(self.dataset, "class_labels"):
+            return np.asarray(self.dataset.class_labels(pool_idx))
+        return None
+
+    def _refresh_work(self, params):
+        """Extraction + selection on a parameter snapshot (the worker
+        thread in async mode).  Features stay on the device."""
+        pool_idx = self._pool_indices()
+        labels = self._pool_labels(pool_idx)
+        t0 = time.perf_counter()
+        feats = self.extractor.extract(params, pool_idx)
+        _sync(self.device)
+        t1 = time.perf_counter()
+        init = None
+        prev = self._prev_selection
+        if self.tcfg.warm_start_fraction > 0 and prev is not None:
+            r0 = int(round(self.tcfg.warm_start_fraction * prev.size))
+            if r0 > 0:
+                init = np.asarray(prev.indices[:r0])
+        selector = CraigSelector(self.tcfg.craig, device=self.device)
+        sel = selector.select(feats, labels=labels, init_selected=init)
+        t2 = time.perf_counter()
+        self._prev_selection = sel
+        return sel, pool_idx, {"extract_time_s": t1 - t0, "selection_time_s": t2 - t1}
+
+    def _publish_refresh(self, result: RefreshResult) -> None:
+        """Stage the selection into the sampler's back buffer."""
+        sel, pool_idx, times = result.value
+        self.sampler.stage(
+            np.asarray(pool_idx)[np.asarray(sel.indices)],
+            sel.weights,
+            version=result.version,
+            meta={
+                "coreset_size": sel.size,
+                "epsilon_hat": float(sel.epsilon_hat),
+                "select_time_s": result.wall_time_s,
+                **times,
+                "per_class_sizes": sel.per_class_sizes,
+                "engine": sel.engine,
+                "dropped_rows": sel.n_dropped,
+            },
+        )
+
+    def _refresh_failed(self, result: RefreshResult) -> None:
+        """``on_exhaustion='keep_stale'``: log the abandoned refresh."""
+        err = result.error
+        self.metrics_log.append({
+            "event": "craig_refresh_failed",
+            "step": self.step,
+            "version": result.version,
+            "attempts": result.attempts,
+            "error": f"{type(err).__name__}: {err}",
+        })
+
+    def _install_refresh(self) -> None:
+        """Epoch-boundary install: wait out an in-flight selection, then
+        swap the staged coreset in."""
+        t0 = time.time()
+        self.refresher.wait()
+        stall = time.time() - t0
+        p = self.sampler.install_pending()
+        if p is None:
+            return
+        meta = p.get("meta") or {}
+        self.metrics_log.append({
+            "event": "craig_refresh",
+            "step": self.step,
+            "version": p["version"],
+            "mode": self.tcfg.refresh_mode,
+            "coreset_size": len(p["indices"]),
+            "weight_sum": float(np.sum(p["weights"], dtype=np.float64)),
+            "epsilon_hat": meta.get("epsilon_hat", float("nan")),
+            "select_time_s": meta.get("select_time_s", float("nan")),
+            "extract_time_s": meta.get("extract_time_s", float("nan")),
+            "selection_time_s": meta.get("selection_time_s", float("nan")),
+            "install_stall_s": stall,
+            "engine": meta.get("engine"),
+        })
+
+    # -- evaluation ------------------------------------------------------------
+
+    @torch.no_grad()
+    def evaluate(self) -> float:
+        """Mean held-out loss over ``eval_batches`` deterministic batches."""
+        ds = self.eval_dataset or self.dataset
+        bs = self.tcfg.batch_size
+        total = 0.0
+        for b in range(self.tcfg.eval_batches):
+            idx = (np.arange(bs) + b * bs) % ds.n_docs
+            batch = to_device(ds.batch(idx), self.device)
+            total += float(model_loss_fn(self.params, self.cfg, batch)[1]["loss"])
+        loss = total / max(self.tcfg.eval_batches, 1)
+        self.metrics_log.append({"event": "eval", "step": self.step, "eval_loss": loss})
+        return loss
+
+    # -- checkpoint -------------------------------------------------------------
+
+    def _save(self, blocking: bool = True) -> None:
+        if self.ckpt is None:
+            return
+        # an in-flight refresh materialises into the staged buffer first
+        self.refresher.wait()
+        prev = self._prev_selection
+        extras = {
+            "step": self.step,
+            "sampler": self.sampler.state_dict(),
+            "last_epoch_selected": self._last_epoch_selected,
+            "prev_selection": None if prev is None else {
+                "indices": np.asarray(prev.indices).tolist(),
+                "weights": np.asarray(prev.weights).tolist(),
+                "coverage": float(prev.coverage),
+                "epsilon_hat": float(prev.epsilon_hat),
+                "engine": prev.engine,
+                "per_class_sizes": None if prev.per_class_sizes is None else
+                {str(k): int(v) for k, v in prev.per_class_sizes.items()},
+            },
+        }
+        self.ckpt.save(self.step, {"params": self.params, "opt": self.opt_state},
+                       extras, blocking=blocking)
+
+    def restore_or_init(self) -> bool:
+        """Restore the latest checkpoint if there is one; True if restored."""
+        if self.ckpt is None or self.ckpt.latest_step() is None:
+            return False
+        tree, extras = self.ckpt.restore({"params": self.params, "opt": self.opt_state})
+        self.params = tree["params"]
+        self.opt_state = tree["opt"]
+        self.step = int(extras["step"])
+        self.sampler.load_state_dict(extras["sampler"])
+        self._last_epoch_selected = int(extras["last_epoch_selected"])
+        self.refresher.reset_version(
+            max(self.sampler.version, self.sampler.pending_version or 0)
+        )
+        ps = extras.get("prev_selection")
+        if ps is not None:
+            pcs = ps.get("per_class_sizes")
+            self._prev_selection = CoresetSelection(
+                indices=np.asarray(ps["indices"], np.int64),
+                weights=np.asarray(ps["weights"], np.float32),
+                order=np.arange(len(ps["indices"])),
+                coverage=float(ps["coverage"]),
+                epsilon_hat=float(ps["epsilon_hat"]),
+                per_class_sizes=None if pcs is None else {int(k): int(v) for k, v in pcs.items()},
+                engine=ps.get("engine"),
+            )
+        return True
+
+    # -- main loop ----------------------------------------------------------------
+
+    def run(self, n_steps: int) -> list[dict]:
+        tc = self.tcfg
+        for _ in range(n_steps):
+            epoch = self.sampler.epoch
+            # install the previous trigger's selection at this epoch
+            # boundary, then (on cadence) snapshot params and start the next
+            if tc.use_craig and tc.select_every_epochs > 0 and self.sampler.step_in_epoch == 0:
+                self._install_refresh()
+                if epoch % tc.select_every_epochs == 0 and epoch != self._last_epoch_selected:
+                    self.refresher.submit(self.params)
+                    self._last_epoch_selected = epoch
+
+            idx, w = self.sampler.next_batch()
+            batch = self.dataset.batch(idx)
+            batch["weights"] = w
+            batch.pop("indices", None)
+            batch = to_device(batch, self.device)
+            t0 = time.time()
+            self.params, self.opt_state, metrics = self.train_step(
+                self.params, self.opt_state, batch
+            )
+            loss = float(metrics["loss"])  # waits for the step
+            dt = time.time() - t0
+            if tc.step_timeout_s is not None and dt > tc.step_timeout_s:
+                self.straggler_events.append(self.step)
+            self.step += 1
+            self.metrics_log.append(
+                {"event": "step", "step": self.step, "loss": loss, "epoch": epoch, "time_s": dt}
+            )
+            if tc.eval_every and self.step % tc.eval_every == 0:
+                self.evaluate()
+            if self.ckpt is not None and self.step % tc.checkpoint_every == 0:
+                self._save(blocking=False)
+            if self._preempt:
+                self._save(blocking=True)
+                break
+        if self.ckpt is not None:
+            self.ckpt.wait()
+        return self.metrics_log

@@ -38,7 +38,11 @@ def test_port_file_imports_neither_jax_nor_repro(path):
 def test_importing_the_port_loads_neither_jax_nor_repro():
     code = (
         "import sys, repro_torch, repro_torch.core.craig, repro_torch.convert, "
-        "repro_torch.examples.quickstart, repro_torch.optim\n"
+        "repro_torch.examples.quickstart, repro_torch.optim, repro_torch.models, "
+        "repro_torch.configs, repro_torch.train, repro_torch.core.proxy, "
+        "repro_torch.core.extract, repro_torch.core.refresh, repro_torch.checkpoint, "
+        "repro_torch.data, repro_torch.faults, repro_torch.kernels.ce_proxy, "
+        "repro_torch.examples.lm_coreset_training\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
         "assert not bad, bad\n"
     )
@@ -71,10 +75,48 @@ def test_cuda_kernels_refuse_cpu_tensors():
 
     with pytest.raises(ValueError, match="CUDA"):
         kfl.fl_gains_argmax_cuda(x, x, cur, sq, sq, chosen)
-    assert ops.LAUNCHES == {"fl_gains": 0, "fl_gains_argmax": 0}
+    assert ops.LAUNCHES == {"fl_gains": 0, "fl_gains_argmax": 0, "ce_proxy": 0}
+
+
+def test_ce_proxy_kernel_refuses_cpu_tensors():
+    from repro_torch.kernels import ce_proxy as kce
+
+    h, w = torch.randn(5, 8), torch.randn(11, 8)
+    y = torch.zeros(5, dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.ce_proxy(h, w, y, impl="cuda")
+    with pytest.raises(ValueError, match="CUDA"):
+        kce.ce_proxy_cuda(h, w, y, 11)
+    assert ops.LAUNCHES["ce_proxy"] == 0
+
+
+def test_lm_entry_points_raise_for_cuda_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card; the check is for CPU-only machines")
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenStream
+    from repro_torch.examples import lm_coreset_training as ex
+    from repro_torch.models import init_params
+    from repro_torch.optim import adamw, constant
+    from repro_torch.train import Trainer, TrainerConfig
+
+    cfg = get_config("qwen3-1.7b")
+    ds = TokenStream(n_docs=8, seq_len=4, vocab_size=cfg.vocab_size)
+    with pytest.raises(RuntimeError, match="cuda"):
+        Trainer(cfg, TrainerConfig(), ds, adamw(constant(1e-3)), dict)  # default: the card
+    with pytest.raises(RuntimeError, match="cuda"):
+        ex.main(["--steps", "1"])  # default --device cuda
+    with pytest.raises(RuntimeError):
+        init_params(cfg, torch.Generator(device="cuda"))
 
 
 def test_auto_dispatch_takes_the_plain_twin_only_on_the_cpu():
+    from repro_torch.kernels import ce_proxy as kce
+
+    h, w = torch.randn(5, 8), torch.randn(11, 8)
+    y = torch.arange(5)
+    torch.testing.assert_close(ops.ce_proxy(h, w, y, impl="auto"),
+                               kce.ce_proxy_torch(h, w, y, 11, torch.float32))
     assert ops.resolve_impl("auto", torch.device("cpu")) == "torch"
     assert ops.resolve_impl("auto", torch.device("cuda")) == "cuda"
     assert ops.resolve_impl("torch", torch.device("cuda")) == "torch"
