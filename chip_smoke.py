@@ -31,7 +31,24 @@ version:
      refresh through the ``ce_proxy`` kernel — inline refreshes (timed
      apart), then the default asynchronous refresh, whose epoch-0 losses
      must match;
-  7. the last line: {"ok": true, "device": {...}}.
+  7. Covtype-shaped selection, slice 3's first path: per-class CRAIG
+     (fraction 0.1, engine='auto') on 581,012 × 54 points in seven classes
+     — the ``sparse`` engine: a ``topk_sim`` graph per class, the host lazy
+     greedy, the exact γ through ``pairwise_l2`` — then weighted IG on the
+     coreset; the class-0 graph held to the plain twin's, the smallest
+     class selected through both routes; ``topk_sim`` and ``pairwise_l2``
+     timed at the path's shapes (``torch.cdist`` beside ``pairwise_l2``);
+  8. the streaming coreset service, slice 3's second path:
+     ``CoresetService(budget=1024, dim=2048)`` fed 16 seeded deltas of
+     4,096 rows, every finalize through ``fl_replay``, the four installed
+     selections held to the dense finalize; ``fl_replay`` timed at the
+     service's shape; a ``launch/serve.py --coreset --device cuda`` round
+     trip in a subprocess;
+  9. the report: one JSON line per the six kernels, then the last line,
+     {"ok": true, "device": {...}}.
+
+Before phases 2–8, ``kernels`` compares ``topk_sim``, ``pairwise_l2`` and
+``fl_replay`` with their plain versions at ragged shapes.
 
 Any failure raises and exits non-zero.  Run from the repository root:
 
@@ -39,8 +56,10 @@ Any failure raises and exits non-zero.  Run from the repository root:
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -81,6 +100,21 @@ PROXY_TIMED = 5  # CUDA-event-timed calls of each proxy path at full width
 # alone are 8.1 GB.
 FREED_GB = 4.0
 
+# Slice 3, path 1: the Covtype-shaped pool (paper §5.1's Covtype is
+# 581,012 × 54 in seven classes; the real file is not in the repository).
+COV_N, COV_D, COV_CLASSES = 581_012, 54, 7
+COV_SIZES = {0: 223_780, 1: 112_297, 2: 74_513, 3: 56_464, 4: 44_663, 5: 37_146, 6: 32_149}
+COV_BUDGETS = {0: 22_378, 1: 11_230, 2: 7_451, 3: 5_646, 4: 4_466, 5: 3_715, 6: 3_215}
+COV_K = 64  # SparseConfig().k
+TOPK_CHECKS = ((1, 1, 1), (37, 5, 7), (130, 12, 23), (300, 33, 64), (1000, 54, 64),
+               (4099, 3, 33), (2000, 130, 100), (5000, 54, 128))  # (n, d, k)
+PAIR_CHECKS = ((1, 1, 1), (37, 5, 3), (130, 129, 22), (999, 1001, 7), (1000, 777, 54))
+REPLAY_CHECKS = ((1, 1, 1), (37, 5, 3), (130, 129, 22), (1000, 300, 54), (3000, 1024, 2048))
+# Slice 3, path 2: the streaming coreset service at the width of the
+# qwen3-1.7b proxies (ce_proxy's D); eps = 0.15 gives 56 sieves.
+SVC_BUDGET, SVC_DIM, SVC_DELTAS, SVC_ROWS, SVC_CLUSTERS = 1024, 2048, 16, 4096, 64
+SVC_INSTALL_AT = (4, 8, 12, 16)
+
 # Published dense peaks (NVIDIA data sheet, H100 SXM): fp32 on the CUDA
 # cores, bf16 on the tensor cores, and device-memory bandwidth, keyed by
 # the card's name.
@@ -105,9 +139,9 @@ def peaks_for(name: str) -> tuple[float, float, float]:
     return PEAKS[name]
 
 
-def median_ms(torch, fn, reps: int = TIMED_LAUNCHES) -> float:
-    """Median of ``reps`` CUDA-event-timed calls after three warm-ups."""
-    for _ in range(3):
+def median_ms(torch, fn, reps: int = TIMED_LAUNCHES, warm: int = 3) -> float:
+    """Median of ``reps`` CUDA-event-timed calls after ``warm`` warm-ups."""
+    for _ in range(warm):
         fn()
     torch.cuda.synchronize()
     times = []
@@ -369,6 +403,466 @@ def train_lm(torch, ops, card, dev, mode: str, n_steps: int, expect: tuple,
     return {"losses": losses, "launches": launches["ce_proxy"]}
 
 
+def bound(t_ops: float, t_bytes: float) -> dict:
+    return {"bound_ms": 1e3 * max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def d2_rounding(torch, d: int) -> float:
+    """Relative fp32 rounding of ‖x‖² + ‖y‖² − 2·x·y over a d-long dot
+    product in another order: 4·√d·ε₃₂ (d roundings add up like a random
+    walk; ×4 of margin)."""
+    return 4.0 * math.sqrt(max(d, 1)) * torch.finfo(torch.float32).eps
+
+
+def dist_tol(torch, x) -> float:
+    """The self-distance rounding of √(‖x‖²+‖y‖²−2x·y): the root of
+    ``d2_rounding``·2·max‖x‖² (a distance near 0 takes the root of the
+    error); distances away from 0 round far inside it."""
+    return (math.sqrt(2.0 * d2_rounding(torch, x.shape[1]))
+            * float(torch.linalg.norm(x, dim=1).max()))
+
+
+def hold_gains(torch, g, pg, tol, what: str) -> float:
+    """Hold each replayed gain to its plain value on its own: |g − pg| ≤ tol
+    + 1e-3·|pg|.  tol is the distance rounding (``dist_tol``: a gain sums
+    distance differences, and the largest ones sit at self-distances near
+    0); 1e-3 is the relative bound, twice the 4.8e-4 by which the
+    reference's own blocked jnp replay differs from its dense one.  Returns
+    the max |g − pg|.  A NaN gain is out of bound."""
+    err = (g - pg).abs()
+    bad = torch.nonzero(~(err <= tol + 1e-3 * pg.abs()))[:, 0]
+    if bad.numel():
+        t = int(bad[0])
+        raise AssertionError(f"{what}: {bad.numel()} of {g.numel()} gains out of bound, "
+                             f"the first at {t}: {float(g[t])} against {float(pg[t])}")
+    return float(err.max())
+
+
+def compare_graphs(torch, x, got, want, tol) -> tuple[float, int]:
+    """Hold a top-k graph to another: values within ``tol`` (+1e-5 rel);
+    a differing index only where the two columns' fp64 similarities are
+    within ``tol`` (the tie rule).  Returns (max |Δvals|, differing slots)."""
+    gv, gi = got
+    wv, wi = want
+    err = float((gv - wv).abs().max())
+    if err > tol + 1e-5 * float(wv.abs().max()):
+        raise AssertionError(f"graph values differ by {err} > {tol}")
+    rows, cols = torch.nonzero(gi != wi, as_tuple=True)
+    if rows.numel():
+        xr = x[rows].double()
+        gap = (torch.linalg.norm(xr - x[gi[rows, cols].long()].double(), dim=1)
+               - torch.linalg.norm(xr - x[wi[rows, cols].long()].double(), dim=1)).abs()
+        if float(gap.max()) > tol:
+            raise AssertionError(f"graph index differs at a gap {float(gap.max())} > {tol}")
+    return err, int(rows.numel())
+
+
+def check_slice3_kernels(torch, ops, dev, gen) -> dict:
+    """``topk_sim``, ``pairwise_l2`` and ``fl_replay`` against their plain
+    versions at ragged shapes.  Returns the max |err| of each."""
+    err = {"topk_sim": 0.0, "pairwise_l2": 0.0, "fl_replay": 0.0}
+    for n, d, k in TOPK_CHECKS:
+        x = torch.randn(n, d, device=dev, generator=gen)
+        before = ops.LAUNCHES["topk_sim"]
+        got = ops.topk_sim(x, k, impl="cuda")
+        torch.cuda.synchronize()
+        if ops.LAUNCHES["topk_sim"] != before + 1:
+            raise AssertionError("topk_sim launch counter did not advance")
+        e, diff = compare_graphs(torch, x, got, ops.topk_sim(x, k, impl="torch"),
+                                 dist_tol(torch, x))
+        err["topk_sim"] = max(err["topk_sim"], e)
+        log(f"[2] topk_sim n={n} d={d} k={k}: max |Δvals| {e:.3e}, {diff} index slots "
+            "differ (near-ties)")
+    for n, m, d in PAIR_CHECKS:
+        x = torch.randn(n, d, device=dev, generator=gen)
+        y = torch.randn(m, d, device=dev, generator=gen)
+        before = ops.LAUNCHES["pairwise_l2"]
+        got = ops.pairwise_l2(x, y, impl="cuda")
+        torch.cuda.synchronize()
+        if ops.LAUNCHES["pairwise_l2"] != before + 1:
+            raise AssertionError("pairwise_l2 launch counter did not advance")
+        e = float((got - ops.pairwise_l2(x, y, impl="torch")).abs().max())
+        tol = dist_tol(torch, torch.cat([x, y]))
+        if e > tol:
+            raise AssertionError(f"pairwise_l2 n={n} m={m} d={d}: max |err| {e} > {tol}")
+        err["pairwise_l2"] = max(err["pairwise_l2"], e)
+    log(f"[2] pairwise_l2 at (n, m, d) in {PAIR_CHECKS}: max |err| {err['pairwise_l2']:.3e}")
+    for n, m, d in REPLAY_CHECKS:
+        x = torch.randn(n, d, device=dev, generator=gen)
+        e_rows = torch.randperm(n, device=dev, generator=gen)[:m]
+        e = x[e_rows]
+        valid = torch.rand(m, device=dev, generator=gen) < 0.9
+        valid[0] = True
+        cur0 = torch.rand(n, device=dev, generator=gen)
+        d_max = 2.0 * torch.sqrt(torch.sum(x * x, dim=1).max()) + 1e-6
+        before = ops.LAUNCHES["fl_replay"]
+        g, cur, bv, bi = ops.fl_replay(x, e, valid, cur0, d_max, impl="cuda")
+        torch.cuda.synchronize()
+        if ops.LAUNCHES["fl_replay"] != before + 1:
+            raise AssertionError("fl_replay launch counter did not advance")
+        pg, pcur, pbv, pbi = ops.fl_replay(x, e, valid, cur0, d_max, impl="torch")
+        tol = dist_tol(torch, x)
+        gerr = hold_gains(torch, g, pg, tol, f"fl_replay n={n} m={m} d={d}")
+        if float((cur - pcur).abs().max()) > tol or float((bv - pbv).abs().max()) > tol:
+            raise AssertionError(f"fl_replay n={n} m={m} d={d}: cover or best value differs")
+        flips = torch.nonzero(bi != pbi)[:, 0]
+        if flips.numel():  # the tie rule on the best position
+            xr = x[flips].double()
+            gap = (torch.linalg.norm(xr - e[bi[flips].long()].double(), dim=1)
+                   - torch.linalg.norm(xr - e[pbi[flips].long()].double(), dim=1)).abs()
+            if float(gap.max()) > tol:
+                raise AssertionError(f"fl_replay n={n} m={m} d={d}: best position differs")
+        err["fl_replay"] = max(err["fl_replay"], gerr)
+        log(f"[2] fl_replay n={n} m={m} d={d}: max |Δgain| {gerr:.3e}, "
+            f"{flips.numel()} best positions differ (near-ties)")
+    return err
+
+
+def coverage64(torch, x, idx, block: int = 8192) -> float:
+    """L(S) = Σ_i min_{j∈S} ‖x_i − x_j‖ in fp64, row block by row block."""
+    xs = x[torch.as_tensor(idx, device=x.device)].double()
+    return sum(float(torch.cdist(x[lo:lo + block].double(), xs).min(dim=1).values.sum())
+               for lo in range(0, x.shape[0], block))
+
+
+def covtype_selection(torch, ops, card, dev, peaks) -> dict:
+    """Slice 3's first path: per-class CRAIG on the Covtype-shaped pool with
+    engine='auto' (the sparse engine), then two epochs of weighted IG.
+    Returns the report entries of ``topk_sim`` and ``pairwise_l2``."""
+    import numpy as np
+
+    from repro_torch.core import engines as E
+    from repro_torch.core.craig import CraigConfig, CraigSelector
+    from repro_torch.core.engines import sparse
+    from repro_torch.core.proxy import convex_feature_proxy
+    from repro_torch.data.synthetic import make_classification
+    from repro_torch.examples.quickstart import logistic, schedule_for
+    from repro_torch.kernels import pairwise_l2 as kpw, topk_sim as ktk
+    from repro_torch.optim import ig_run
+
+    fp32_peak, _, mem_bw = peaks
+    x_np, y = make_classification(COV_N, COV_D, COV_CLASSES, seed=0)
+    x_np = x_np / np.abs(x_np).max()
+    if {int(c): int(k) for c, k in zip(*np.unique(y, return_counts=True))} != COV_SIZES:
+        raise AssertionError("make_classification no longer gives the Covtype-shaped sizes")
+    feats = convex_feature_proxy(x_np, device=dev)
+    selector = CraigSelector(CraigConfig(fraction=0.1, per_class=True), device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for k in ops.LAUNCHES:
+        ops.LAUNCHES[k] = 0
+    for k in sparse.TIMINGS:
+        sparse.TIMINGS[k] = 0.0
+    t0 = time.perf_counter()
+    cs = selector.select(feats, y)
+    torch.cuda.synchronize()
+    select_s = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    phases = {k: round(v, 3) for k, v in sparse.TIMINGS.items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    n_budget = sum(COV_BUDGETS.values())
+    if cs.engine != E.SparseConfig().to_dict():
+        raise AssertionError(f"engine='auto' picked {cs.engine}, expected the sparse engine")
+    if cs.size != n_budget or len(np.unique(cs.indices)) != cs.size:
+        raise AssertionError(f"selected {cs.size} (unique {len(np.unique(cs.indices))}), "
+                             f"expected {n_budget}")
+    if float(np.sum(cs.weights, dtype=np.float64)) != COV_N:
+        raise AssertionError(f"Σγ = {np.sum(cs.weights, dtype=np.float64)} != {COV_N}")
+    if cs.per_class_sizes != COV_BUDGETS:
+        raise AssertionError(f"per-class sizes {cs.per_class_sizes} != {COV_BUDGETS}")
+    if launches["topk_sim"] != COV_CLASSES or launches["pairwise_l2"] < COV_CLASSES:
+        raise AssertionError(f"launches {launches}: expected one topk_sim per class and at "
+                             "least one pairwise_l2 block per class")
+    if not math.isfinite(cs.coverage):
+        raise AssertionError(f"coverage {cs.coverage}")
+    log(f"[7] Covtype-shaped selection: {cs.size}/{COV_N} medoids, engine {cs.engine}, "
+        f"{select_s:.3f}s (graph {phases['graph_s']}s, host greedy {phases['greedy_s']}s, "
+        f"assignment {phases['assign_s']}s); launches {launches}; per-class sizes "
+        f"{cs.per_class_sizes}; Σγ={np.sum(cs.weights, dtype=np.float64):.0f}; "
+        f"L(S)={cs.coverage:.4f}; max_memory_allocated {peak_gb:.2f} GB; {card}")
+
+    # class 0: the kernel's graph against the plain twin's, both timed
+    pool0 = torch.as_tensor(np.nonzero(y == 0)[0], device=dev)
+    x0 = feats[pool0].contiguous()
+    n0 = x0.shape[0]
+    sq0 = torch.sum(x0 * x0, dim=1)
+    dm0 = 2.0 * torch.sqrt(sq0.max()) + 1e-6
+    out = {}
+    t_ms = median_ms(torch, lambda: out.__setitem__("k", ktk.topk_sim_cuda(x0, sq0, dm0, COV_K)),
+                     3, warm=1)
+    p_ms = median_ms(torch, lambda: out.__setitem__("p", ktk.topk_sim_torch(x0, sq0, dm0, COV_K)),
+                     1, warm=0)
+    tol0 = dist_tol(torch, x0)
+    g_err, g_diff = compare_graphs(torch, x0, out["k"], out["p"], tol0)
+    del out
+    t_ops = n0 * n0 * (2 * COV_D + 6) / fp32_peak  # dot, norms, sqrt, −, compare
+    t_bytes = (4 * n0 * (COV_D + 1) + 8 * n0 * COV_K) / mem_bw
+    topk = {"ms": t_ms, "plain_ms": p_ms, **bound(t_ops, t_bytes), "library_ms": None,
+            "launches": launches["topk_sim"], "max_abs_err_main": g_err}
+    log(f"[7] topk_sim at class 0 ({n0} × {COV_D}, k={COV_K}): kernel against plain twin: "
+        f"max |Δvals| {g_err:.3e} (tol {tol0:.3e}), {g_diff} of {n0 * COV_K} index slots "
+        f"differ (near-ties); {topk}")
+
+    # pairwise_l2 at one class-0 assignment block against its medoids
+    sel0 = torch.as_tensor(np.searchsorted(np.nonzero(y == 0)[0],
+                                           cs.indices[np.isin(cs.indices, np.nonzero(y == 0)[0])]),
+                           device=dev)
+    s0 = x0[sel0].contiguous()
+    r0 = s0.shape[0]
+    rows = min(n0, sparse.ASSIGN_BLOCK_BYTES // (4 * r0))
+    xb = x0[:rows].contiguous()
+    sqb, sqs = torch.sum(xb * xb, dim=1), torch.sum(s0 * s0, dim=1)
+    d_k = kpw.pairwise_l2_cuda(xb, s0, sqb, sqs)
+    d_p = kpw.pairwise_l2_torch(xb, s0, sqb, sqs)
+    pw_err = float((d_k - d_p).abs().max())
+    if pw_err > tol0:
+        raise AssertionError(f"pairwise_l2 at the main-path block: max |err| {pw_err} > {tol0}")
+    del d_k, d_p
+    t_ops = rows * r0 * (2 * COV_D + 4) / fp32_peak
+    t_bytes = 4 * (rows * COV_D + r0 * COV_D + rows + r0 + rows * r0) / mem_bw
+    pair = {"ms": median_ms(torch, lambda: kpw.pairwise_l2_cuda(xb, s0, sqb, sqs), 10),
+            "plain_ms": median_ms(torch, lambda: kpw.pairwise_l2_torch(xb, s0, sqb, sqs), 10),
+            **bound(t_ops, t_bytes),
+            "library_ms": median_ms(torch, lambda: torch.cdist(xb, s0), 10),
+            "launches": launches["pairwise_l2"], "max_abs_err_main": pw_err}
+    log(f"[7] pairwise_l2 at one class-0 assignment block ({rows} × {r0} × {COV_D}): {pair}")
+
+    # the smallest class through both routes
+    pool6 = np.nonzero(y == 6)[0]
+    x6 = feats[torch.as_tensor(pool6, device=dev)]
+    runs = {}
+    for impl in ("cuda", "torch"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runs[impl] = CraigSelector(CraigConfig(fraction=0.1, per_class=False,
+                                               engine=E.SparseConfig(impl=impl)),
+                                   device=dev).select(x6)
+        torch.cuda.synchronize()
+        runs[impl + "_s"] = time.perf_counter() - t0
+    a, b = runs["cuda"], runs["torch"]
+    if np.array_equal(a.indices, b.indices):
+        if not np.array_equal(a.weights, b.weights):
+            raise AssertionError("class 6: same medoids, different γ")
+        verdict6 = "identical indices and γ"
+    else:
+        ca, cb = coverage64(torch, x6, a.indices), coverage64(torch, x6, b.indices)
+        if abs(ca - cb) > 1e-3 * max(ca, cb):
+            raise AssertionError(f"class 6: objectives {ca} and {cb} differ by more than 1e-3")
+        verdict6 = f"indices differ after a near-tie; fp64 L(S) {ca:.4f} vs {cb:.4f}"
+    log(f"[7] class 6 ({len(pool6)} × {COV_D}, r={a.size}) through both routes: kernels "
+        f"{runs['cuda_s']:.3f}s, plain {runs['torch_s']:.3f}s; {verdict6}")
+
+    # two epochs of weighted IG on the coreset: class 0 against the rest
+    grad_one, full_loss = logistic(feats, (y == 0).astype(np.int64), LAM)
+    sched = schedule_for(COV_N)
+    loss0 = full_loss(torch.zeros(COV_D, device=dev))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    w_end, _ = ig_run(grad_one, torch.zeros(COV_D, device=dev), cs.indices, cs.weights, sched,
+                      TRAIN_EPOCHS)
+    torch.cuda.synchronize()
+    secs = (time.perf_counter() - t0) / TRAIN_EPOCHS
+    loss = full_loss(w_end)
+    if not (math.isfinite(loss) and loss < loss0):
+        raise AssertionError(f"Covtype IG: loss {loss} is not below {loss0}")
+    log(f"[7] weighted IG on the Covtype-shaped coreset (class 0 against the rest): "
+        f"{cs.size} steps/epoch, {secs:.3f}s/epoch, loss {loss:.6f} after {TRAIN_EPOCHS} "
+        f"epochs (w0: {loss0:.6f})")
+    return {"topk_sim": topk, "pairwise_l2": pair}
+
+
+def coreset_service(torch, ops, card, dev, peaks) -> dict:
+    """Slice 3's second path: the streaming coreset service on the card.
+    Every drain finalizes through ``fl_replay``; the four installed
+    selections are held to the dense finalize.  Returns the report entry
+    of ``fl_replay``."""
+    from repro_torch.core.engines import streaming
+    from repro_torch.kernels import fl_gains as kfl
+    from repro_torch.serve import CoresetService
+
+    fp32_peak, _, mem_bw = peaks
+    gen = torch.Generator(device=dev).manual_seed(1)
+    centers = torch.randn(SVC_CLUSTERS, SVC_DIM, device=dev, generator=gen)
+    deltas = []
+    for _ in range(SVC_DELTAS):
+        comp = torch.randint(0, SVC_CLUSTERS, (SVC_ROWS,), device=dev, generator=gen)
+        deltas.append(centers[comp] + 0.5 * torch.randn(SVC_ROWS, SVC_DIM, device=dev,
+                                                        generator=gen))
+    svc = CoresetService(SVC_BUDGET, SVC_DIM, mode="sync", device=dev)
+    sel = svc.selector
+    L = streaming.num_sieves(SVC_BUDGET, sel.config.eps)
+    ingest_s, final_s, results = [], [], []
+    ingest, result = sel.ingest, sel.result
+
+    def timed(fn, sink, keep=None):
+        def call(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            sink.append(time.perf_counter() - t0)
+            if keep is not None:
+                keep.append(out)
+            return out
+        return call
+
+    sel.ingest = timed(ingest, ingest_s)
+    sel.result = timed(result, final_s, results)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for k in ops.LAUNCHES:
+        ops.LAUNCHES[k] = 0
+    t_run = time.perf_counter()
+    updates, checks, check_s = [], [], 0.0
+    for i, d in enumerate(deltas, start=1):
+        if svc.submit_delta(d) != i:
+            raise AssertionError(f"delta {i} drained as another version")
+        if i not in SVC_INSTALL_AT:
+            continue
+        u = svc.coreset()
+        t0 = time.perf_counter()
+        pool = torch.cat(deltas[:i])
+        checks.append(hold_to_dense(torch, sel, result, results[-1], pool, u, i))
+        updates.append(u)
+        check_s += time.perf_counter() - t0
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t_run - check_s
+    launches = dict(ops.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    sel.ingest, sel.result = ingest, result
+    if [u.version for u in updates] != list(SVC_INSTALL_AT):
+        raise AssertionError(f"installed versions {[u.version for u in updates]}")
+    if launches["fl_replay"] != SVC_DELTAS:
+        raise AssertionError(f"fl_replay launched {launches['fl_replay']} times for "
+                             f"{SVC_DELTAS} drains")
+    log(f"[8] coreset service (budget {SVC_BUDGET}, dim {SVC_DIM}, L={L} sieves): "
+        f"{SVC_DELTAS} deltas of {SVC_ROWS} rows ({SVC_DELTAS * SVC_ROWS * SVC_DIM * 4 / 1e6:.0f} "
+        f"MB of pool) in {run_s:.1f}s; ingest s per delta: first {ingest_s[0]:.3f}, last "
+        f"{ingest_s[-1]:.3f}, median {statistics.median(ingest_s):.3f}; finalize s: first "
+        f"{final_s[0]:.3f}, last {final_s[-1]:.3f}; launches {launches}; "
+        f"max_memory_allocated {peak_gb:.2f} GB; {card}")
+    log(f"[8] installed versions {[u.version for u in updates]}, held to the dense "
+        f"finalize: {checks}")
+
+    # fl_replay at the service's last finalize shape
+    pool = torch.cat(deltas)
+    n = pool.shape[0]
+    picks = results[-1].indices[:checks[-1]["replayed"]]
+    e = pool[picks].contiguous()
+    m = e.shape[0]
+    sqx, sqe = torch.sum(pool * pool, dim=1), torch.sum(e * e, dim=1)
+    valid = torch.ones(m, dtype=torch.bool, device=dev)
+    cur0 = torch.zeros(n, device=dev)
+    d_max = (2.0 * torch.sqrt(sqx.max()) + 1e-6).reshape(())
+    t_ops = n * m * (2 * SVC_DIM + 9) / fp32_peak  # dot, norms, sqrt, gain, cover, best
+    t_bytes = (4 * (n * SVC_DIM + m * SVC_DIM + 2 * n + 2 * m) + m + 12 * n + 4 * m) / mem_bw
+    rep = {"ms": median_ms(torch, lambda: kfl.fl_replay_cuda(pool, e, sqx, sqe, valid, d_max,
+                                                              cur0), 10),
+           "plain_ms": median_ms(torch, lambda: kfl.fl_replay_torch(pool, e, sqx, sqe, valid,
+                                                                     d_max, cur0), 10),
+           **bound(t_ops, t_bytes), "library_ms": None, "launches": launches["fl_replay"],
+           "max_abs_err_main": max(c["max_gain_err"] for c in checks)}
+    log(f"[8] fl_replay at the last finalize ({n} × {m} × {SVC_DIM}): {rep}")
+    del svc, deltas, pool, e, results
+    torch.cuda.empty_cache()
+    serve_round_trip(card)
+    return rep
+
+
+def hold_to_dense(torch, sel, result, got, pool, u, version) -> dict:
+    """Hold the kernel finalize ``got`` (the drain's own result) to the
+    dense finalize on the same state.
+
+    A distance d's fp32 rounding is at most τ_d = ``d2_rounding``·(‖x‖² +
+    ‖m‖²)/(2·d) (the rounding of ‖x‖² + ‖m‖² − 2·x·m over the derivative
+    of the root).
+    Indices: equal; or diverging only in the backfill, at a pick whose two
+    rows' fp64 residuals lie within τ_d, with fp64 L(S) within 1e-3 after.
+    γ: a row can change its medoid only where its two nearest medoids'
+    fp64 distances lie within τ_d, so Σ|Δγ| ≤ 2 × such rows.  Gains: each
+    one on its own, as ``hold_gains`` holds them."""
+    cfg = sel.config
+    sel.config = dataclasses.replace(cfg, finalize_impl="dense")
+    try:
+        want = result(pool)
+    finally:
+        sel.config = cfg
+    if not (torch.equal(got.indices.cpu(), torch.as_tensor(u.indices))
+            and torch.equal(got.weights.cpu(), torch.as_tensor(u.weights))):
+        raise AssertionError(f"v{version}: the installed update is not the drain's finalize")
+    rel = d2_rounding(torch, pool.shape[1])
+    st = sel.state()
+    replayed = min(int(st.count[int(torch.argmax(st.fval))]), SVC_BUDGET)
+    out = {"version": version, "n": pool.shape[0], "replayed": replayed,
+           "backfill": SVC_BUDGET - replayed}
+    ki, di = got.indices.cpu(), want.indices.cpu()
+    med = pool[ki.to(pool.device)].double()
+    sqm = float((med * med).sum(dim=1).max())
+
+    def tau_d(xb, dist):
+        return rel * ((xb * xb).sum(dim=-1) + sqm) / (2.0 * dist.clamp(min=1e-3))
+
+    diverged = torch.nonzero(ki != di)
+    if diverged.numel():
+        t = int(diverged[0, 0])
+        if t < replayed:
+            raise AssertionError(f"v{version}: replayed pick {t} differs")
+        rows = pool[torch.stack([ki[t], di[t]]).to(pool.device)].double()
+        res = torch.cdist(rows, med[:t]).min(dim=1).values
+        if float((res[0] - res[1]).abs()) > float(tau_d(rows, res).max()):
+            raise AssertionError(f"v{version}: backfill pick {t} differs ({int(ki[t])} vs "
+                                 f"{int(di[t])}) at fp64 residuals {res.tolist()}")
+        ca, cb = coverage64(torch, pool, ki.numpy()), coverage64(torch, pool, di.numpy())
+        if abs(ca - cb) > 1e-3 * max(ca, cb):
+            raise AssertionError(f"v{version}: objectives {ca} and {cb} after a near-tie")
+        out.update(indices=f"diverge at backfill pick {t} (near-tie)", max_gain_err=0.0)
+        return out
+    near = 0
+    for lo in range(0, pool.shape[0], 8192):
+        xb = pool[lo:lo + 8192].double()
+        two = torch.topk(torch.cdist(xb, med), 2, dim=1, largest=False).values
+        near += int(((two[:, 1] - two[:, 0]) <= tau_d(xb, two[:, 0])).sum())
+    dgamma = float((got.weights - want.weights).abs().sum())
+    if dgamma > 2 * near:
+        raise AssertionError(f"v{version}: Σ|Δγ| = {dgamma} with {near} near-tie rows")
+    gerr = hold_gains(torch, got.gains, want.gains, dist_tol(torch, pool), f"v{version}")
+    out.update(indices="equal",
+               gamma="equal" if dgamma == 0 else f"Σ|Δγ|={dgamma:.0f} ({near} near-tie rows)",
+               max_gain_err=gerr)
+    return out
+
+
+def serve_round_trip(card) -> None:
+    """``python -m repro_torch.launch.serve --coreset --device cuda`` over
+    real pipes: two deltas, a coreset, a bad request, quit."""
+    import numpy as np
+
+    rng = np.random.RandomState(9)
+    reqs = [{"op": "delta", "feats": rng.randn(24, 4).tolist()},
+            {"op": "delta", "feats": rng.randn(16, 4).tolist()},
+            {"op": "coreset"}, {"op": "bogus"}, {"op": "quit"}]
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--coreset", "--budget", "6",
+         "--dim", "4", "--device", "cuda"],
+        input="\n".join(json.dumps(r) for r in reqs) + "\n", capture_output=True, text=True,
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src")), timeout=300,
+    )
+    if proc.returncode != 0:
+        raise AssertionError(f"launch/serve.py exited {proc.returncode}: {proc.stderr[-2000:]}")
+    resp = [json.loads(ln) for ln in proc.stdout.splitlines() if ln.strip()]
+    sel = resp[2] if len(resp) == 5 else {}
+    if (resp[:2] != [{"ok": True, "version": 1, "n_seen": 24},
+                     {"ok": True, "version": 2, "n_seen": 40}]
+            or not sel.get("ok") or len(set(sel["indices"])) != 6
+            or abs(sum(sel["gamma"]) - 40.0) > 1e-6 or resp[3]["ok"] is not False
+            or resp[4] != {"ok": True, "bye": True}):
+        raise AssertionError(f"launch/serve.py round trip: {resp}")
+    log(f"[8] launch/serve.py --coreset --device cuda round trip: 5 requests answered in "
+        f"{time.perf_counter() - t0:.1f}s (process start included); coreset v{sel['version']} "
+        f"of {sel['n_seen']} rows, Σγ={sum(sel['gamma']):.0f}; {card}")
+
 def main() -> None:
     import torch
 
@@ -504,6 +998,7 @@ def main() -> None:
         log(f"[2] {kname} at n=m={n}, d={d}: {results[kname]}")
     results["ce_proxy"] = check_ce_proxy(torch, ops, kce, dev, gen,
                                          (fp32_peak, bf16_peak, mem_bw))
+    max_err.update(check_slice3_kernels(torch, ops, dev, gen))
 
     # -- 3. select: the main path -------------------------------------------
     x_np, y = make_classification(N_MAIN, D_MAIN, 2, seed=0)
@@ -630,30 +1125,47 @@ def main() -> None:
     log(f"[6] async against sync, epoch 0: largest relative loss difference {drift:.3e}")
     max_err["ce_proxy"] = results["ce_proxy"]["max_abs_err"]
 
-    # -- 7. report ----------------------------------------------------------
+    # -- 7. Covtype-shaped selection: the slice-3 sparse path ---------------
+    peaks = (fp32_peak, bf16_peak, mem_bw)
+    results.update(covtype_selection(torch, ops, card, dev, peaks))
+    for kname in ("topk_sim", "pairwise_l2"):
+        max_err[kname] = max(max_err[kname], results[kname].pop("max_abs_err_main", 0.0))
+
+    # -- 8. the streaming coreset service: the slice-3 serving path --------
+    results["fl_replay"] = coreset_service(torch, ops, card, dev, peaks)
+    max_err["fl_replay"] = max(max_err["fl_replay"], results["fl_replay"].pop("max_abs_err_main"))
+
+    # -- 9. report ----------------------------------------------------------
     replaces = {
         "fl_gains": "src/repro/kernels/fl_gains.py:106",
         "fl_gains_argmax": "src/repro/kernels/fl_gains.py:197",
         "ce_proxy": "src/repro/kernels/ce_proxy.py:113",
+        "topk_sim": "src/repro/kernels/topk_sim.py:115",
+        "pairwise_l2": "src/repro/kernels/pairwise_l2.py:38",
+        "fl_replay": "src/repro/kernels/fl_gains.py:338",
     }
     sources = {"fl_gains": "src/repro_torch/kernels/csrc/fl_gains.cu",
                "fl_gains_argmax": "src/repro_torch/kernels/csrc/fl_gains.cu",
-               "ce_proxy": "src/repro_torch/kernels/csrc/ce_proxy.cu"}
+               "ce_proxy": "src/repro_torch/kernels/csrc/ce_proxy.cu",
+               "topk_sim": "src/repro_torch/kernels/csrc/topk_sim.cu",
+               "pairwise_l2": "src/repro_torch/kernels/csrc/pairwise_l2.cu",
+               "fl_replay": "src/repro_torch/kernels/csrc/fl_replay.cu"}
     results["fl_gains_argmax"]["launches"] = main_launches["fl_gains_argmax"]
     kernels = []
-    for kname in ("fl_gains_argmax", "fl_gains", "ce_proxy"):
+    for kname in replaces:
         r = results[kname]
         kernels.append({
             "name": kname, "route": "cuda",
             "source": sources[kname],
             "replaces": replaces[kname], "launches": r["launches"],
             "max_abs_err": max_err[kname], "ms": r["ms"], "plain_ms": r["plain_ms"],
-            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None,
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r.get("library_ms"),
         })
     if any(k["launches"] < 1 for k in kernels):
         raise AssertionError(f"a kernel of the path was never launched: {kernels}")
-    log(f"[7] ce_proxy fp32 at the main-path shape: {results['ce_proxy']['fp32']}")
-    log(f"[7] total {time.perf_counter() - t_start:.1f}s")
+    log(f"[9] ce_proxy fp32 at the main-path shape: {results['ce_proxy']['fp32']}")
+    log(f"[9] total {time.perf_counter() - t_start:.1f}s")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

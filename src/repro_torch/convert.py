@@ -16,7 +16,7 @@ from repro_torch.core.craig import CoresetSelection
 from repro_torch.core.engines import EngineConfig, engine_config_from_dict
 
 __all__ = [
-    "GAINS_IMPL_FROM_REFERENCE",
+    "IMPL_FROM_REFERENCE",
     "engine_config_from_reference",
     "selection_from_reference",
     "params_from_reference",
@@ -24,8 +24,12 @@ __all__ = [
     "model_params_from_reference",
 ]
 
-# The reference's gains implementations and their counterparts here.
-GAINS_IMPL_FROM_REFERENCE = {"jax": "torch", "pallas": "cuda", "auto": "auto"}
+# The reference's kernel routes (``FeaturesConfig.gains_impl``,
+# ``SparseConfig.impl``, ``StreamingConfig.finalize_impl``) and their
+# counterparts here.  The port's own names map to themselves, so a state
+# dict the port wrote loads through the same function.
+IMPL_FROM_REFERENCE = {"jax": "torch", "pallas": "cuda", "auto": "auto", "dense": "dense",
+                       "torch": "torch", "cuda": "cuda"}
 # The reference's select-step proxy heads (``make_select_step(proxy_impl)``).
 PROXY_IMPL_FROM_REFERENCE = {"pallas": "cuda", "einsum": "einsum", "auto": "auto"}
 
@@ -33,22 +37,24 @@ PROXY_IMPL_FROM_REFERENCE = {"pallas": "cuda", "einsum": "einsum", "auto": "auto
 def engine_config_from_reference(d: dict) -> EngineConfig:
     """A reference ``EngineConfig.to_dict()`` → the port's typed config.
 
-    ``gains_impl`` maps 'jax' → 'torch', 'pallas' → 'cuda', 'auto' →
-    'auto'.  The device engine's tiles ``block_n`` and ``block_m`` are
-    dropped: the port's kernel streams whole pool columns through blocks
-    of its own width, which the plain twin shares.  Every other field
-    carries over unchanged.  An engine the port does not have yet raises
+    ``gains_impl``, the sparse engine's ``impl`` and the streaming
+    engine's ``finalize_impl`` map through :data:`IMPL_FROM_REFERENCE`
+    ('jax' → 'torch', 'pallas' → 'cuda'); an unknown name raises.  The device
+    engine's tiles ``block_n`` and ``block_m`` are dropped: the port's
+    kernel streams whole pool columns through blocks of its own width,
+    which the plain twin shares.  Every other field carries over
+    unchanged.  An engine the port does not have yet raises
     (``registry.NOT_PORTED`` names its item).
     """
     d = dict(d)
     if d.get("name") == "device":
         d.pop("block_n", None)
         d.pop("block_m", None)
-    if "gains_impl" in d:
-        impl = d["gains_impl"]
-        if impl not in GAINS_IMPL_FROM_REFERENCE:
-            raise ValueError(f"unknown reference gains_impl {impl!r}")
-        d["gains_impl"] = GAINS_IMPL_FROM_REFERENCE[impl]
+    for key in ("gains_impl", "impl", "finalize_impl"):
+        if key in d:
+            if d[key] not in IMPL_FROM_REFERENCE:
+                raise ValueError(f"unknown reference {key} {d[key]!r}")
+            d[key] = IMPL_FROM_REFERENCE[d[key]]
     return engine_config_from_dict(d)
 
 

@@ -2,9 +2,9 @@
 
 Port of ``repro.core.engines``: the shared protocol (``base``), the
 registry with the ``engine='auto'`` policy (``registry``), and the engines
-this slice ports — matrix, features and device.  The lazy, stochastic,
-sparse and streaming engines and the legacy flat-knob shims are not
-ported yet (ROADMAP.md queue 1); naming one raises.
+ported so far — matrix, features, device, sparse and streaming.  The lazy,
+stochastic and tree engines and the legacy flat-knob shims are not ported
+yet (ROADMAP.md queue 1); naming one raises.
 """
 from repro_torch.core.engines.base import (
     Capabilities,
@@ -35,6 +35,25 @@ from repro_torch.core.engines.features import (
     greedy_fl_features,
 )
 from repro_torch.core.engines.device import DeviceConfig, DeviceEngine, greedy_fl_device
+from repro_torch.core.engines.sparse import (
+    SparseConfig,
+    SparseEngine,
+    greedy_fl_topk,
+    sparse_greedy_fl,
+    sparse_greedy_fl_features,
+    topk_graph,
+)
+from repro_torch.core.engines.streaming import (
+    StreamingConfig,
+    StreamingEngine,
+    StreamingSelector,
+    StreamingState,
+    ingest_delta,
+    init_streaming_state,
+    num_sieves,
+    streaming_result,
+    streaming_result_blocked,
+)
 
 __all__ = [
     "Capabilities",
@@ -51,6 +70,8 @@ __all__ = [
     "MatrixConfig", "MatrixEngine",
     "FeaturesConfig", "FeaturesEngine",
     "DeviceConfig", "DeviceEngine",
+    "SparseConfig", "SparseEngine",
+    "StreamingConfig", "StreamingEngine", "StreamingSelector", "StreamingState",
     "pairwise_distances",
     "normalize_for_metric",
     "cosine_residual_coverage",
@@ -59,4 +80,13 @@ __all__ = [
     "greedy_fl_matrix",
     "greedy_fl_features",
     "greedy_fl_device",
+    "topk_graph",
+    "greedy_fl_topk",
+    "sparse_greedy_fl",
+    "sparse_greedy_fl_features",
+    "init_streaming_state",
+    "ingest_delta",
+    "num_sieves",
+    "streaming_result",
+    "streaming_result_blocked",
 ]

@@ -4,7 +4,8 @@ Port of ``repro.core.engines.registry``.  ``register_engine`` publishes an
 engine; everything else goes through ``get_engine``/``list_engines``/
 ``make_engine``.  ``auto_engine_config`` picks the engine from the pool
 size and the backend: the CUDA backend takes the reference's TPU row (the
-``device`` engine, one fused ``fl_gains_argmax`` sweep per round).
+``device`` engine, one fused ``fl_gains_argmax`` sweep per round), and
+pools past 2·10⁵ points go to the ``sparse`` engine on every backend.
 """
 from __future__ import annotations
 
@@ -32,8 +33,6 @@ _REGISTRY: dict[str, type[SelectionEngine]] = {}
 NOT_PORTED = {
     "lazy": "ROADMAP.md queue 1, 'lazy and stochastic engines'",
     "stochastic": "ROADMAP.md queue 1, 'lazy and stochastic engines'",
-    "sparse": "ROADMAP.md queue 1, 'Sparse engine'",
-    "streaming": "ROADMAP.md queue 1, 'Streaming'",
     "tree": "ROADMAP.md queue 1, 'select_distributed and select_tree'",
 }
 
@@ -135,7 +134,7 @@ def auto_engine_config(
     n ≤ 20 000              matrix — dense exact greedy fits
     20 000 < n ≤ 200 000    device on CUDA (fused ``fl_gains_argmax``
                             sweeps), features elsewhere
-    n > 200 000             sparse — not ported yet: raises
+    n > 200 000             sparse (the ``topk_sim`` graph on a card)
     ======================  =========================================
 
     Args:

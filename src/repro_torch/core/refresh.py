@@ -22,14 +22,20 @@ Each job runs under a :class:`~repro_torch.faults.FailurePolicy`: retries
 with exponential backoff on the worker, then re-raise at the caller's
 next ``wait``/``collect``/``submit`` (``'raise'``), abandon and call
 ``on_failure`` (``'keep_stale'``), or one inline re-run at the caller's
-next touch point (``'sync_fallback'``).  Streaming ingest (``ingest``) is
-not ported yet and raises.
+next touch point (``'sync_fallback'``).
+
+With an ``ingest_fn`` the refresher also serves the streaming path (the
+coreset service): :meth:`AsyncRefresher.ingest` queues pool deltas and
+drains the queue as one coalesced ``ingest_fn(deltas)`` job whenever the
+worker is idle — the same job slot and publish lifecycle, one version per
+drain.
 """
 from __future__ import annotations
 
 import dataclasses
 import threading
 import time
+import weakref
 from typing import Any, Callable, Literal
 
 import numpy as np
@@ -37,9 +43,7 @@ import torch
 
 from repro_torch.faults import FailurePolicy
 
-__all__ = ["AsyncRefresher", "RefreshResult", "snapshot"]
-
-_STREAMING_ITEM = "ROADMAP.md queue 1, slice 3 'Streaming'"
+__all__ = ["AsyncRefresher", "RefreshResult", "snapshot", "weak_callback"]
 
 
 @dataclasses.dataclass
@@ -73,6 +77,20 @@ def snapshot(tree: Any) -> Any:
     return tree
 
 
+def weak_callback(method: Callable) -> Callable:
+    """``method`` (bound) called through a weak reference to its object, so
+    that a refresher does not hold its owner alive in a reference cycle."""
+    ref, name = weakref.WeakMethod(method), method.__qualname__
+
+    def call(*args):
+        bound = ref()
+        if bound is None:
+            raise ReferenceError(f"{name}: its owner was freed")
+        return bound(*args)
+
+    return call
+
+
 class AsyncRefresher:
     """Runs ``work_fn(params_snapshot)`` off the training critical path.
 
@@ -87,6 +105,7 @@ class AsyncRefresher:
         work_fn: Callable[[Any], Any],
         mode: Literal["sync", "async"] = "async",
         on_complete: Callable[[RefreshResult], None] | None = None,
+        ingest_fn: Callable[[list], Any] | None = None,
         failure_policy: FailurePolicy | None = None,
         on_failure: Callable[[RefreshResult], None] | None = None,
     ):
@@ -95,6 +114,8 @@ class AsyncRefresher:
         self._work_fn = work_fn
         self._mode = mode
         self._on_complete = on_complete
+        self._ingest_fn = ingest_fn
+        self._pending: list = []
         self._policy = failure_policy or FailurePolicy()
         self._on_failure = on_failure
         self._version = 0
@@ -149,10 +170,16 @@ class AsyncRefresher:
         self._version += 1
         version = self._version
         snap = snapshot(params)
+        self._launch(version, lambda: self._work_fn(snap), "refresh")
+        return version
+
+    def _launch(self, version: int, fn: Callable[[], Any], name: str) -> None:
+        """Run ``fn`` as job ``version``: inline in sync mode, else on a
+        new worker thread."""
 
         def job() -> None:
             try:
-                self._run_job(version, lambda: self._work_fn(snap))
+                self._run_job(version, fn)
             except BaseException as e:  # noqa: BLE001 — surfaced at wait()
                 with self._lock:
                     self._result = RefreshResult(version, None, 0.0, error=e)
@@ -163,15 +190,54 @@ class AsyncRefresher:
             self._raise_if_failed()
         else:
             self._thread = threading.Thread(
-                target=job, name=f"craig-refresh-v{version}", daemon=False
+                target=job, name=f"craig-{name}-v{version}", daemon=False
             )
             self._thread.start()
-        return version
+
+    # -- streaming ingest (coalescing) ---------------------------------------
+
+    @property
+    def pending_deltas(self) -> int:
+        """Deltas queued for the next coalesced ingest drain."""
+        with self._lock:
+            return len(self._pending)
 
     def ingest(self, *deltas: Any) -> int | None:
-        raise NotImplementedError(
-            f"streaming ingest is not ported to repro_torch ({_STREAMING_ITEM})"
-        )
+        """Queue pool deltas and drain them through ``ingest_fn``.
+
+        Where :meth:`submit` rejects while a job is in flight, ``ingest``
+        coalesces: deltas enqueue unconditionally, and whenever no job is
+        in flight the whole queue drains as ONE job, ``ingest_fn(deltas)``,
+        publishing one ``RefreshResult``.  Returns the drained version, or
+        None if the deltas queued behind an in-flight job (they drain at
+        the next ingest/:meth:`wait`/:meth:`collect`).  Failures route as
+        submit's do.
+        """
+        if self._ingest_fn is None:
+            raise RuntimeError(
+                "this refresher has no ingest_fn; pass one at construction "
+                "to use the streaming ingest path"
+            )
+        if not deltas:
+            raise ValueError("ingest() needs at least one delta")
+        with self._lock:
+            self._pending.extend(deltas)
+        return self._drain()
+
+    def _drain(self) -> int | None:
+        """Start one coalesced ingest job if idle and deltas are queued."""
+        if self.busy:
+            return None
+        self._run_fallback_if_pending()
+        self._raise_if_failed()
+        with self._lock:
+            if not self._pending:
+                return None
+            batch, self._pending = self._pending, []
+        self._version += 1
+        version = self._version
+        self._launch(version, lambda: self._ingest_fn(batch), "ingest")
+        return version
 
     # -- supervised job runner -----------------------------------------------
 
@@ -261,17 +327,25 @@ class AsyncRefresher:
         self._version = max(self._version, int(version))
 
     def wait(self, timeout: float | None = None) -> None:
-        """Block until no job is in flight and no fallback is pending;
-        re-raise a worker failure.  On timeout a ``TimeoutError`` raises
-        and the job keeps running."""
-        t = self._thread
-        if t is not None:
-            t.join(timeout)
-            if t.is_alive():
-                raise TimeoutError(f"refresh still running after {timeout}s")
-            self._thread = None
-        self._run_fallback_if_pending()
-        self._raise_if_failed()
+        """Block until no job is in flight, no queued deltas remain and no
+        fallback is pending; re-raise a worker failure.  ``timeout`` is one
+        deadline for all of it; on expiry a ``TimeoutError`` raises and the
+        job keeps running, its outcome surfacing at the next touch point."""
+        deadline = None if timeout is None else time.monotonic() + timeout
+        while True:
+            t = self._thread
+            if t is not None:
+                remaining = None if deadline is None else deadline - time.monotonic()
+                if remaining is None or remaining > 0:
+                    t.join(remaining)
+                if t.is_alive():
+                    raise TimeoutError(f"refresh still running after {timeout}s")
+                self._thread = None
+            self._run_fallback_if_pending()
+            self._raise_if_failed()
+            if self._ingest_fn is not None and self._drain() is not None:
+                continue
+            return
 
     def collect(self, block: bool = False) -> RefreshResult | None:
         """Pop the published result, if any.  ``block=True`` waits first."""

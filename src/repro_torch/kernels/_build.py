@@ -1,6 +1,7 @@
 """Build and bind the port's CUDA kernels (no counterpart in ``repro``).
 
-Every ``csrc/*.cu`` source has a plain C interface.  At first use each is
+Every ``csrc/*.cu`` source has a plain C interface (``csrc/*.cuh`` are
+headers they share).  At first use each is
 compiled with ``nvcc`` for ``sm_90a`` into its own shared library under
 the repository's ``build/`` directory, named by a hash of the source, and
 loaded with ``ctypes``; :func:`build_all` starts one ``nvcc`` per source
@@ -32,7 +33,10 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 
 # Kernel launches per kernel, bumped only where a kernel is launched.
-LAUNCHES: dict[str, int] = {"fl_gains": 0, "fl_gains_argmax": 0, "ce_proxy": 0}
+LAUNCHES: dict[str, int] = {
+    "fl_gains": 0, "fl_gains_argmax": 0, "ce_proxy": 0,
+    "topk_sim": 0, "pairwise_l2": 0, "fl_replay": 0,
+}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -47,6 +51,17 @@ SIGNATURES: dict[str, dict[str, tuple]] = {
     "ce_proxy": {
         "ce_proxy_f32": (_P,) * 4 + (_I,) * 4 + (_P,),
         "ce_proxy_bf16": (_P,) * 4 + (_I,) * 4 + (_P,),
+    },
+    "topk_sim": {
+        "topk_sim_max_k": (),
+        "topk_sim_f32": (_P,) * 5 + (_I,) * 3 + (_P,),
+    },
+    "pairwise_l2": {
+        "pairwise_l2_f32": (_P,) * 5 + (_I,) * 3 + (_P,),
+    },
+    "fl_replay": {
+        "fl_replay_block_rows": (),
+        "fl_replay_f32": (_P,) * 11 + (_I,) * 3 + (_P,),
     },
 }
 
@@ -71,7 +86,11 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    digest = hashlib.sha256(source(name).read_bytes()).hexdigest()[:16]
+    # the digest covers the shared headers too: a header edit rebuilds
+    h = hashlib.sha256(source(name).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    digest = h.hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

@@ -1,11 +1,12 @@
 """Greedy-sweep kernels: CUDA launch wrappers and their plain-torch twins.
 
 Port of ``repro.kernels.fl_gains`` (``fl_gains_pallas``,
-``fl_gains_argmax_pallas``).  The TPU kernels become one hand-written CUDA
-source, ``csrc/fl_gains.cu``, bound through :mod:`._build`; beside each
-launch wrapper sits the plain-torch version of the same function, the
-blockwise sweep of ``repro/core/engines/device.py`` and
-``repro/core/engines/features.py``.  The plain versions serve the CPU
+``fl_gains_argmax_pallas``, ``fl_replay_pallas``).  The TPU kernels become
+hand-written CUDA sources, ``csrc/fl_gains.cu`` and ``csrc/fl_replay.cu``,
+bound through :mod:`._build`; beside each launch wrapper sits the
+plain-torch version of the same function: the blockwise sweep of
+``repro/core/engines/device.py`` and ``repro/core/engines/features.py``,
+and the blocked replay of ``repro/core/engines/streaming.py:460-505``.  The plain versions serve the CPU
 and the on-card comparison; :mod:`repro_torch.kernels.ops` chooses.
 
 Launch wrappers take pre-arranged operands (``madj = d_max − cur_max``),
@@ -25,6 +26,8 @@ __all__ = [
     "fl_gains_argmax_cuda",
     "fl_gains_torch",
     "fl_gains_argmax_torch",
+    "fl_replay_cuda",
+    "fl_replay_torch",
     "TILE_DTYPES",
     "PLAIN_BLOCK_M",
 ]
@@ -58,7 +61,7 @@ def _require(t: torch.Tensor, what: str, dtype, shape, device) -> None:
         raise ValueError(f"{what} must be contiguous")
 
 
-def _check_operands(x, e, madj, sqx, sqe, tile_dtype):
+def _check_operands(x, e, madj, sqx, sqe, tile_dtype, madj_name="madj"):
     if x.device.type != "cuda":
         raise ValueError(
             f"the fl_gains CUDA kernels take CUDA tensors, got {x.device}"
@@ -77,7 +80,7 @@ def _check_operands(x, e, madj, sqx, sqe, tile_dtype):
     dev = x.device
     _require(x, "x", tile_dtype, (n, d), dev)
     _require(e, "e", tile_dtype, (m, d), dev)
-    _require(madj, "madj", torch.float32, (n,), dev)
+    _require(madj, madj_name, torch.float32, (n,), dev)
     _require(sqx, "sqx", torch.float32, (n,), dev)
     _require(sqe, "sqe", torch.float32, (m,), dev)
     return n, m, d
@@ -187,3 +190,68 @@ def fl_gains_argmax_torch(
         part_g.append(gp[p])
         part_i.append((lo + p).to(torch.int32))
     return torch.cat(gains), torch.stack(part_g), torch.stack(part_i)
+
+
+def fl_replay_cuda(x, e, sqx, sqe, valid, d_max, cur0):
+    """Launch the sequential replay of the ordered candidates ``e``.
+
+    Args:
+      x: (n, d) fp32 pool, e: (m, d) fp32 candidates in replay order (CUDA,
+        contiguous); sqx (n,), sqe (m,) fp32 squared norms.
+      valid: (m,) bool, False for a dead candidate; d_max: 0-d fp32 tensor;
+      cur0: (n,) fp32 initial cover state.
+    Returns:
+      (gains (m,) fp32, cur (n,) fp32, best_v (n,) fp32, best_i (n,) int32);
+      gains are the row blocks' partials summed over axis 0.
+    """
+    if x.device.type != "cuda":
+        raise ValueError(f"the fl_replay CUDA kernel takes CUDA tensors, got {x.device}")
+    n, m, d = _check_operands(x, e, cur0, sqx, sqe, torch.float32, "cur0")
+    dev = x.device
+    _require(valid, "valid", torch.bool, (m,), dev)
+    _require(d_max, "d_max", torch.float32, (), dev)
+    lib = _build.library("fl_replay")
+    n_blocks = -(-n // lib.fl_replay_block_rows())
+    part = torch.empty((n_blocks, m), dtype=torch.float32, device=dev)
+    cur = torch.empty((n,), dtype=torch.float32, device=dev)
+    best_v = torch.empty((n,), dtype=torch.float32, device=dev)
+    best_i = torch.empty((n,), dtype=torch.int32, device=dev)
+    status = lib.fl_replay_f32(
+        x.data_ptr(), e.data_ptr(), sqx.data_ptr(), sqe.data_ptr(),
+        valid.data_ptr(), d_max.data_ptr(), cur0.data_ptr(), part.data_ptr(),
+        cur.data_ptr(), best_v.data_ptr(), best_i.data_ptr(), n, m, d,
+        _stream(dev),
+    )
+    _build.check(status, "fl_replay")
+    LAUNCHES["fl_replay"] += 1
+    return part.sum(dim=0), cur, best_v, best_i
+
+
+def fl_replay_torch(x, e, sqx, sqe, valid, d_max, cur0, *, block_m: int = 128):
+    """Plain twin of :func:`fl_replay_cuda` (``streaming.py:460-505``): one
+    (n × block_m) similarity tile per candidate block, the cover state
+    before each column from a running max along the block."""
+    n = x.shape[0]
+    m = e.shape[0]
+    dead = torch.tensor(-1e30, dtype=torch.float32, device=x.device)
+    cur = cur0.float()
+    best_v = torch.full((n,), -1e30, dtype=torch.float32, device=x.device)
+    best_i = torch.zeros((n,), dtype=torch.int32, device=x.device)
+    gains = []
+    for lo in range(0, m, block_m):
+        hi = min(lo + block_m, m)
+        d2 = (sqx[:, None] + sqe[None, lo:hi]) - 2.0 * (x @ e[lo:hi].T)
+        s = d_max - torch.sqrt(torch.clamp(d2, min=0.0))
+        s_cov = torch.where(valid[None, lo:hi], s, dead)
+        run = torch.cummax(s_cov, dim=1).values
+        prev = torch.maximum(
+            cur[:, None], torch.cat([dead.expand(n, 1), run[:, :-1]], dim=1)
+        )
+        gains.append(torch.clamp(s_cov - prev, min=0.0).sum(dim=0))
+        cur = torch.maximum(cur, run[:, -1])
+        bvb, bib = torch.max(s_cov, dim=1)  # first maximum, as jnp.argmax
+        upd = bvb > best_v  # strict: the earlier block wins ties
+        best_v = torch.where(upd, bvb, best_v)
+        best_i = torch.where(upd, (bib + lo).to(torch.int32), best_i)
+    gains = torch.cat(gains) if gains else torch.zeros((0,), device=x.device)
+    return gains, cur, best_v, best_i

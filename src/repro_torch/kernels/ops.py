@@ -1,10 +1,11 @@
 """Public kernel wrappers: dispatch and input checks.
 
 Port of ``repro.kernels.ops`` (``fl_gains``, ``fl_gains_argmax``,
-``ce_proxy``).  The reference pads to block and lane multiples and picks
+``ce_proxy``, ``topk_sim``, ``pairwise_l2``, ``fl_replay``).  The
+reference pads to block and lane multiples and picks
 Pallas interpret mode off the TPU; here the CUDA kernels mask ragged edges
 themselves, so the wrappers only arrange operands and dispatch
-(``gains_impl``, or ``impl`` for ``ce_proxy``):
+(``gains_impl``, or ``impl`` for the others):
 
   * ``'auto'``: the CUDA kernel for CUDA tensors, the plain twin for CPU
     tensors;
@@ -21,9 +22,11 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels import ce_proxy as _ce
 from repro_torch.kernels import fl_gains as _fl
+from repro_torch.kernels import pairwise_l2 as _pw
+from repro_torch.kernels import topk_sim as _tk
 
-__all__ = ["fl_gains", "fl_gains_argmax", "ce_proxy", "resolve_impl", "LAUNCHES",
-           "TILE_DTYPES"]
+__all__ = ["fl_gains", "fl_gains_argmax", "ce_proxy", "topk_sim", "pairwise_l2",
+           "fl_replay", "resolve_impl", "LAUNCHES", "TILE_DTYPES"]
 
 LAUNCHES = _build.LAUNCHES
 TILE_DTYPES = _fl.TILE_DTYPES
@@ -169,3 +172,89 @@ def ce_proxy(
         hidden.to(compute_dtype).contiguous(), unembed.to(compute_dtype).contiguous(),
         labels.to(torch.int32).contiguous(), vv,
     )
+
+
+def topk_sim(
+    x: torch.Tensor,
+    k: int,
+    d_max=None,
+    *,
+    impl: str = "auto",
+    block_m: int = 2048,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Top-k similarity graph rows of the pool against itself.
+
+    Returns (vals (n, k) fp32 descending, idx (n, k) int32) with
+    vals[i, t] = d_max − ‖x_i − x_{idx[i, t]}‖ over the k most similar
+    columns (self included), ties to the lower column.  O(n·k) output; the
+    dense (n, n) similarity is never materialized.
+
+    Args:
+      x: (n, d) features (cast to fp32).
+      k: neighbours per row, 1 ≤ k ≤ n (the kernel takes k ≤ 128).
+      d_max: similarity offset; defaults to 2·max‖x‖ + 1e-6.
+      impl: 'auto' | 'cuda' | 'torch', as ``gains_impl`` above.
+      block_m: column tile of the plain twin (the kernel uses its own).
+    """
+    x = x.float().contiguous()
+    n = x.shape[0]
+    if not 1 <= k <= n:
+        raise ValueError(f"k={k} outside [1, n={n}]")
+    sq = torch.sum(x * x, dim=1)
+    # default: 2·max‖x‖ + 1e-6, the triangle-inequality bound on any distance
+    d_max = 2.0 * torch.sqrt(torch.max(sq)) + 1e-6 if d_max is None else _scalar(d_max, x.device)
+    if resolve_impl(impl, x.device) == "torch":
+        return _tk.topk_sim_torch(x, sq, d_max, k, block_m=block_m)
+    return _tk.topk_sim_cuda(x, sq, d_max.reshape(()).contiguous(), k)
+
+
+def pairwise_l2(x: torch.Tensor, y: torch.Tensor, *, impl: str = "auto") -> torch.Tensor:
+    """(n, m) fp32 pairwise distances ‖x_i − y_j‖ (the reference's formula,
+    √max(‖x‖² + ‖y‖² − 2·x·y, 0)); ``impl`` as ``gains_impl`` above."""
+    x = x.float().contiguous()
+    y = y.float().contiguous()
+    sqx = torch.sum(x * x, dim=1)
+    sqy = torch.sum(y * y, dim=1)
+    if resolve_impl(impl, x.device) == "torch":
+        return _pw.pairwise_l2_torch(x, y, sqx, sqy)
+    return _pw.pairwise_l2_cuda(x, y, sqx, sqy)
+
+
+def fl_replay(
+    x: torch.Tensor,
+    e: torch.Tensor,
+    valid: torch.Tensor,
+    cur0: torch.Tensor,
+    d_max,
+    *,
+    impl: str = "auto",
+    block_m: int = 128,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Sequential FL replay of an ordered candidate list (streaming finalize).
+
+    gains[t] = Σ_i relu(s_it − max(cur0_i, max_{t'<t} s_it')) with
+    s_it = d_max − ‖x_i − e_t‖: the gain sequence a greedy run records when
+    it accepts the candidates in row order of ``e``.  Also the final cover
+    state and each pool row's best candidate (value, position in ``e``),
+    the earliest position on ties.  Dead candidates (``valid`` False) give
+    no gain, no cover and never win.
+
+    Args:
+      x: (n, d) pool; e: (m, d) candidates in order (cast to fp32).
+      valid: (m,) bool; cur0: (n,) fp32 initial cover; d_max: fp32 scalar.
+      impl: 'auto' | 'cuda' | 'torch'; block_m: candidate block of the
+        plain twin (the kernel uses its own).
+    Returns:
+      (gains (m,) fp32, cur (n,) fp32, best_v (n,) fp32, best_i (n,) int32).
+    """
+    x = x.float().contiguous()
+    e = e.float().contiguous()
+    sqx = torch.sum(x * x, dim=1)
+    sqe = torch.sum(e * e, dim=1)
+    d_max = _scalar(d_max, x.device)
+    valid = valid.to(device=x.device, dtype=torch.bool)
+    cur0 = cur0.float()
+    if resolve_impl(impl, x.device) == "torch":
+        return _fl.fl_replay_torch(x, e, sqx, sqe, valid, d_max, cur0, block_m=block_m)
+    return _fl.fl_replay_cuda(x, e, sqx, sqe, valid.contiguous(), d_max.reshape(()).contiguous(),
+                              cur0.contiguous())

@@ -1,0 +1,129 @@
+"""The coreset service behind a JSON-lines protocol.
+
+Port of ``repro.launch.serve`` (its ``--coreset`` mode).  One JSON request
+per stdin line, one JSON response per stdout line:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --coreset --budget 32 --dim 8
+    PYTHONPATH=src python -m repro_torch.launch.serve --coreset --device cpu
+
+    {"op": "delta", "feats": [[...], ...], "labels": [...]?}
+        -> {"ok": true, "version": v, "n_seen": n}
+    {"op": "coreset"}
+        -> {"ok": true, "version": v, "indices": [...], "gamma": [...],
+            "n_seen": n, "n_live": l, "coverage": c}
+    {"op": "quit"}   -> {"ok": true, "bye": true}
+    anything invalid -> {"ok": false, "error": "..."}   (service keeps running)
+
+The service runs on ``--device`` (default ``cuda``).  Decode mode
+(``--arch``) is not ported yet and raises.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+
+from repro_torch.core.engines import StreamingConfig
+from repro_torch.faults import FailurePolicy
+from repro_torch.serve import CoresetService
+
+_DECODE_ITEM = "ROADMAP.md queue 1, 'Prefill and decode'"
+
+
+def _serve_coreset(args, stdin=None, stdout=None) -> None:
+    """JSON-lines loop over a CoresetService (sync mode: the response to a
+    delta is written once its drain has published)."""
+    stdin = sys.stdin if stdin is None else stdin
+    stdout = sys.stdout if stdout is None else stdout
+    svc = CoresetService(
+        args.budget,
+        args.dim,
+        config=StreamingConfig(eps=args.eps, levels=args.levels),
+        metric=args.metric,
+        per_class=args.per_class,
+        mode="sync",
+        evict=args.evict,
+        failure_policy=FailurePolicy(
+            max_retries=args.ingest_retries,
+            backoff_base_s=args.ingest_backoff_s,
+            on_exhaustion=args.on_exhaustion,
+        ),
+        device=args.device,
+    )
+
+    def reply(obj: dict) -> None:
+        stdout.write(json.dumps(obj) + "\n")
+        stdout.flush()
+
+    for line in stdin:
+        line = line.strip()
+        if not line:
+            continue
+        try:
+            req = json.loads(line)
+            op = req.get("op")
+            if op == "delta":
+                version = svc.submit_delta(req["feats"], req.get("labels"))
+                failure = svc.pop_failure()
+                if failure is not None:
+                    # keep_stale abandonment: the installed selection is
+                    # unchanged; say so instead of letting the version stall
+                    reply({"ok": False, "n_seen": svc.n_seen, **failure})
+                else:
+                    reply({"ok": True, "version": version, "n_seen": svc.n_seen})
+            elif op == "coreset":
+                u = svc.coreset(block=True)
+                if u is None:
+                    reply({"ok": False, "error": "no deltas ingested yet"})
+                else:
+                    reply({
+                        "ok": True,
+                        "version": u.version,
+                        "indices": u.indices.tolist(),
+                        "gamma": u.weights.tolist(),
+                        "n_seen": u.n_seen,
+                        "n_live": u.n_live,
+                        "coverage": u.coverage,
+                    })
+            elif op == "quit":
+                reply({"ok": True, "bye": True})
+                return
+            else:
+                reply({"ok": False, "error": f"unknown op {op!r}"})
+        except Exception as e:  # noqa: BLE001 — protocol errors go to the client
+            reply({"ok": False, "error": f"{type(e).__name__}: {e}"})
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", help="decode mode (not ported yet: raises)")
+    ap.add_argument("--coreset", action="store_true",
+                    help="run the JSON-lines coreset service")
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--budget", type=int, default=32)
+    ap.add_argument("--dim", type=int, default=8)
+    ap.add_argument("--metric", default="l2", choices=("l2", "cosine"))
+    ap.add_argument("--per-class", action="store_true")
+    ap.add_argument("--eps", type=float, default=0.15)
+    ap.add_argument("--levels", type=int, default=0)
+    ap.add_argument("--evict", action="store_true",
+                    help="bounded-memory mode: drop pool rows no sieve "
+                         "references after every drain (O(L·k·d) state)")
+    ap.add_argument("--ingest-retries", type=int, default=0,
+                    help="retries per ingest drain before the exhaustion policy applies")
+    ap.add_argument("--ingest-backoff-s", type=float, default=0.05,
+                    help="base of the exponential retry backoff")
+    ap.add_argument("--on-exhaustion", default="raise", choices=("raise", "keep_stale"),
+                    help="'raise' fails the request; 'keep_stale' keeps serving the "
+                         "installed selection and replies with a craig_refresh_failed event")
+    args = ap.parse_args(argv)
+    if not args.coreset:
+        raise NotImplementedError(
+            f"decode mode is not ported to repro_torch ({_DECODE_ITEM}); "
+            "run with --coreset"
+        )
+    _serve_coreset(args)
+
+
+if __name__ == "__main__":
+    main()

@@ -32,7 +32,6 @@ import dataclasses
 import signal
 import time
 import warnings
-import weakref
 from typing import Any, Callable, Literal
 
 import numpy as np
@@ -42,7 +41,7 @@ from repro_torch._device import resolve_device
 from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.core.craig import CoresetSelection, CraigConfig, CraigSelector
 from repro_torch.core.extract import ProxyExtractor
-from repro_torch.core.refresh import AsyncRefresher, RefreshResult
+from repro_torch.core.refresh import AsyncRefresher, RefreshResult, weak_callback
 from repro_torch.data.pipeline import CoresetSampler, to_device
 from repro_torch.faults import FailurePolicy
 from repro_torch.models import loss_fn as model_loss_fn
@@ -82,19 +81,6 @@ class TrainerConfig:
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
-
-
-def _weak(method: Callable) -> Callable:
-    """``method`` (bound) called through a weak reference to its object."""
-    ref, name = weakref.WeakMethod(method), method.__qualname__
-
-    def call(*args):
-        bound = ref()
-        if bound is None:
-            raise ReferenceError(f"{name}: its trainer was freed")
-        return bound(*args)
-
-    return call
 
 
 class Trainer:
@@ -147,11 +133,11 @@ class Trainer:
         # weak callbacks: the refresher must not hold the trainer (and
         # its parameters and optimizer state) alive in a reference cycle
         self.refresher = AsyncRefresher(
-            _weak(self._refresh_work),
+            weak_callback(self._refresh_work),
             mode=tcfg.refresh_mode,
-            on_complete=_weak(self._publish_refresh),
+            on_complete=weak_callback(self._publish_refresh),
             failure_policy=tcfg.refresh_failure_policy,
-            on_failure=_weak(self._refresh_failed),
+            on_failure=weak_callback(self._refresh_failed),
         )
         # previous refresh's selection in pool coordinates (the pool is a
         # fixed stride, identical across refreshes): the warm-start seed

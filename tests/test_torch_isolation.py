@@ -42,7 +42,9 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
         "repro_torch.configs, repro_torch.train, repro_torch.core.proxy, "
         "repro_torch.core.extract, repro_torch.core.refresh, repro_torch.checkpoint, "
         "repro_torch.data, repro_torch.faults, repro_torch.kernels.ce_proxy, "
-        "repro_torch.examples.lm_coreset_training\n"
+        "repro_torch.examples.lm_coreset_training, repro_torch.core.engines.sparse, "
+        "repro_torch.core.engines.streaming, repro_torch.kernels.topk_sim, "
+        "repro_torch.kernels.pairwise_l2, repro_torch.serve, repro_torch.launch.serve\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
         "assert not bad, bad\n"
     )
@@ -75,7 +77,8 @@ def test_cuda_kernels_refuse_cpu_tensors():
 
     with pytest.raises(ValueError, match="CUDA"):
         kfl.fl_gains_argmax_cuda(x, x, cur, sq, sq, chosen)
-    assert ops.LAUNCHES == {"fl_gains": 0, "fl_gains_argmax": 0, "ce_proxy": 0}
+    assert ops.LAUNCHES == {"fl_gains": 0, "fl_gains_argmax": 0, "ce_proxy": 0,
+                            "topk_sim": 0, "pairwise_l2": 0, "fl_replay": 0}
 
 
 def test_ce_proxy_kernel_refuses_cpu_tensors():
@@ -122,3 +125,18 @@ def test_auto_dispatch_takes_the_plain_twin_only_on_the_cpu():
     assert ops.resolve_impl("torch", torch.device("cuda")) == "torch"
     with pytest.raises(ValueError):
         ops.resolve_impl("cuda", torch.device("cpu"))
+
+
+def test_streaming_entry_points_raise_for_cuda_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card; the check is for CPU-only machines")
+    from repro_torch.core.engines import StreamingSelector
+    from repro_torch.launch import serve
+    from repro_torch.serve import CoresetService
+
+    with pytest.raises(RuntimeError, match="cuda"):
+        CoresetService(4, 3)  # the default device is the card
+    with pytest.raises(RuntimeError, match="cuda"):
+        StreamingSelector(4, 3)
+    with pytest.raises(RuntimeError, match="cuda"):
+        serve.main(["--coreset"])  # default --device cuda

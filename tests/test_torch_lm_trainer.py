@@ -142,7 +142,7 @@ def test_refresher_failure_policies(mode):
     r.wait(10)
     res = r.collect()
     assert res.value == "second" and res.fell_back
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(RuntimeError, match="no ingest_fn"):  # the service passes one
         r.ingest([1])
 
 

@@ -201,11 +201,14 @@ def test_engine_configs_carry_across():
         (JE.FeaturesConfig(gains_impl="jax", block_n=256),
          E.FeaturesConfig(gains_impl="torch", block_n=256)),
         (JE.MatrixConfig(), E.MatrixConfig()),
+        (JE.SparseConfig(k=16, impl="pallas"), E.SparseConfig(k=16, impl="cuda")),
+        (JE.StreamingConfig(finalize_impl="jax"), E.StreamingConfig(finalize_impl="torch")),
     ]
     for ref_cfg, want in cases:
         assert convert.engine_config_from_reference(ref_cfg.to_dict()) == want
+    # an engine the port does not have yet still raises
     with pytest.raises(ValueError, match="not ported"):
-        convert.engine_config_from_reference(JE.SparseConfig().to_dict())
+        convert.engine_config_from_reference(JE.StochasticConfig().to_dict())
 
 
 def test_reference_weights_give_the_same_port_loss():
