@@ -75,7 +75,7 @@ N_REDUCED = 6_144  # ≈ 4,096 points in the larger class
 LAM = 1e-5
 TRAIN_EPOCHS = 2
 CHECK_SIZES = (1, 7, 129, 1000, *CLASS_SIZES.values())
-CHECK_DIMS = (1, 22, 54, 130)
+CHECK_DIMS = (1, 22, 54, 130, 257)  # 257: past fl_gains.cu's 64-wide resident cap
 TIMED_LAUNCHES = 25
 
 # LM phases: qwen3-1.7b at full width on the seeded token stream.
@@ -91,8 +91,17 @@ LM_STEPS = 84
 LM_ASYNC_STEPS = 65
 CE_SHAPES = (  # (T, D, V, valid_v): main-path shape, then ragged ones
     (4096, 2048, 151_936, 151_936),
+    # the same with valid_v at qwen3's tokenizer vocabulary (the config pads
+    # the tables to 151,936 and phase 5 runs valid_v = 151,936): a ragged
+    # last valid vocab block
+    (4096, 2048, 151_936, 151_669),
     (1000, 96, 1000, 997),
     (1000, 72, 1000, 997),
+    # the bf16 kernel's tiling edges: one token at the widest D; D not a
+    # multiple of 256 with ragged T and V; D % 8 != 0 (the staged route)
+    (1, 2048, 4099, 4097),
+    (129, 2040, 4099, 4097),
+    (37, 250, 3001, 2999),
 )
 CE_TIMED = {"bfloat16": 5, "float32": 3}  # CUDA-event-timed launches
 PROXY_TIMED = 5  # CUDA-event-timed calls of each proxy path at full width
@@ -154,6 +163,33 @@ def median_ms(torch, fn, reps: int = TIMED_LAUNCHES, warm: int = 3) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(stop))
     return statistics.median(times)
+
+
+def max_sm_clock_hz() -> float:
+    """The card's maximum SM clock (nvidia-smi clocks.max.sm, MHz)."""
+    proc = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60,
+    )
+    return 1e6 * float(proc.stdout.strip().splitlines()[0])
+
+
+# Issue slots per (row, candidate) pair of fl_gains.cu, counted from its
+# source: per feature dim one FFMA plus the shared loads (8 LDS.64 + 2
+# LDS.128 per two dims of 32 pairs, 10/64 a pair-dim), and an epilogue of
+# ~14 (norm sum, −2·dot, max, the IEEE sqrtf sequence of ~8, subtract,
+# relu, accumulate).
+FL_SLOTS_PER_DIM = 1.0 + 10.0 / 64.0
+FL_SLOTS_EPILOGUE = 14.0
+
+
+def issue_seconds(torch, n: int, m: int, d: int, sm_clock: float) -> float:
+    """fl_gains' instruction-issue bound: the pairs' issue slots over the
+    card's warp-instruction rate (4 schedulers an SM, one warp instruction
+    of 32 threads each per clock, at the maximum SM clock)."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    slots = n * m * (d * FL_SLOTS_PER_DIM + FL_SLOTS_EPILOGUE) / 32.0
+    return slots / (sms * 4 * sm_clock)
 
 
 def gain_tol(x, n: int, d_max: float, bf16: bool) -> float:
@@ -318,6 +354,9 @@ def full_width_proxy_check(torch, ops, card, dev) -> None:
         ms = {k: round(median_ms(torch, fn, PROXY_TIMED), 3) for k, fn in ms.items()}
     log(f"[5] {LM_ARCH} proxies per {LM_BATCH}×{LM_SEQ} batch, median ms of {PROXY_TIMED} "
         f"(whole = forward + head): {ms}; {card}")
+    log(f"[5] head alone at T = {LM_BATCH * LM_SEQ} tokens, D = {cfg.d_model}, V = "
+        f"{cfg.padded_vocab}: ce_proxy kernel {ms['kernel head']} ms, einsum head "
+        f"{ms['einsum head']} ms ({ms['kernel head'] / ms['einsum head']:.2f}×); {card}")
     del params, fused, einsum, batch, hidden, w, labels, h2, y2
     torch.cuda.empty_cache()
 
@@ -965,37 +1004,43 @@ def main() -> None:
     log(f"[2] {checked} kernel/plain comparisons passed at (n=m) in {CHECK_SIZES}, "
         f"d in {CHECK_DIMS}; max |gain err| fp32: {max_err}")
 
-    # timing at the main-path sweep shape: n = m = 33,216, d = 22, fp32
-    n, d = CLASS_SIZES[0], D_MAIN
-    x, sq, d_max, _, _ = operands(n, d)
-    cur = torch.zeros(n, device=dev)
-    chosen = torch.zeros(n, dtype=torch.bool, device=dev)
-    madj = (d_max - cur).contiguous()
-    m_blocks = -(-n // _build.library("fl_gains").fl_gains_block_m())
-    ops_count = n * n * (2 * d + 8)  # per pair: d FMAs + norms, sqrt, relu, add
-    io_bytes = {
-        "fl_gains": 4 * (2 * n * d + 3 * n) + 4 * n,
-        "fl_gains_argmax": 4 * (2 * n * d + 3 * n) + n + 4 * n + 8 * m_blocks,
-    }
-    timed = {
-        "fl_gains": (
-            lambda: kfl.fl_gains_cuda(x, x, madj, sq, sq),
-            lambda: kfl.fl_gains_torch(x, x, cur, sq, sq, d_max),
-        ),
-        "fl_gains_argmax": (
-            lambda: kfl.fl_gains_argmax_cuda(x, x, madj, sq, sq, chosen),
-            lambda: kfl.fl_gains_argmax_torch(x, x, cur, sq, sq, d_max, chosen),
-        ),
-    }
-    for kname, (kern, plain) in timed.items():
-        t_ops, t_bytes = ops_count / fp32_peak, io_bytes[kname] / mem_bw
-        results[kname] = {
-            "ms": median_ms(torch, kern),
-            "plain_ms": median_ms(torch, plain),
-            "bound_ms": 1e3 * max(t_ops, t_bytes),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+    # timing at the main-path sweep shapes: n = m = 33,216 (class 0, the
+    # reported shape) and 16,774 (class 1), d = 22, fp32
+    sm_clock = max_sm_clock_hz()
+    for n in CLASS_SIZES.values():
+        d = D_MAIN
+        x, sq, d_max, _, _ = operands(n, d)
+        cur = torch.zeros(n, device=dev)
+        chosen = torch.zeros(n, dtype=torch.bool, device=dev)
+        madj = (d_max - cur).contiguous()
+        m_blocks = -(-n // _build.library("fl_gains").fl_gains_block_m())
+        ops_count = n * n * (2 * d + 8)  # per pair: d FMAs + norms, sqrt, relu, add
+        io_bytes = {
+            "fl_gains": 4 * (2 * n * d + 3 * n) + 4 * n,
+            "fl_gains_argmax": 4 * (2 * n * d + 3 * n) + n + 4 * n + 8 * m_blocks,
         }
-        log(f"[2] {kname} at n=m={n}, d={d}: {results[kname]}")
+        timed = {
+            "fl_gains": (
+                lambda: kfl.fl_gains_cuda(x, x, madj, sq, sq),
+                lambda: kfl.fl_gains_torch(x, x, cur, sq, sq, d_max),
+            ),
+            "fl_gains_argmax": (
+                lambda: kfl.fl_gains_argmax_cuda(x, x, madj, sq, sq, chosen),
+                lambda: kfl.fl_gains_argmax_torch(x, x, cur, sq, sq, d_max, chosen),
+            ),
+        }
+        for kname, (kern, plain) in timed.items():
+            t_ops, t_bytes = ops_count / fp32_peak, io_bytes[kname] / mem_bw
+            r = {
+                "ms": median_ms(torch, kern),
+                "plain_ms": median_ms(torch, plain),
+                "bound_ms": 1e3 * max(t_ops, t_bytes),
+                "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                "issue_bound_ms": 1e3 * issue_seconds(torch, n, n, d, sm_clock),
+            }
+            if n == CLASS_SIZES[0]:
+                results[kname] = r
+            log(f"[2] {kname} at n=m={n}, d={d}: {r}")
     results["ce_proxy"] = check_ce_proxy(torch, ops, kce, dev, gen,
                                          (fp32_peak, bf16_peak, mem_bw))
     max_err.update(check_slice3_kernels(torch, ops, dev, gen))

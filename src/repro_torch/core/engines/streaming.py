@@ -130,14 +130,15 @@ def init_streaming_state(
     levels: int = 0,
     init_selected=None,
     init_feats=None,
-    device: str | torch.device = "cpu",
+    device: str | torch.device = "cuda",
 ) -> StreamingState:
     """Empty sieve grid for ``budget`` selections over ``dim``-d features
-    on ``device``.  ``init_selected``/``init_feats`` seed a warm-start
-    prefix: treated as already selected, excluded from admission, replayed
-    first at finalize."""
+    on ``device`` (the card unless the caller asks for the CPU; raises
+    where CUDA is absent and ``device`` is not ``"cpu"``).
+    ``init_selected``/``init_feats`` seed a warm-start prefix: treated as
+    already selected, excluded from admission, replayed first at finalize."""
     budget = int(budget)
-    dev = torch.device(device)
+    dev = resolve_device(device)
     if budget < 1:
         raise ValueError(f"budget must be ≥ 1, got {budget}")
     if init_selected is None:

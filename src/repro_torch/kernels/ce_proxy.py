@@ -36,7 +36,8 @@ _ENTRY = {torch.float32: "ce_proxy_f32", torch.bfloat16: "ce_proxy_bf16"}
 # Tokens per chunk of the plain twin: (chunk, V) fp32 logits at a time.
 PLAIN_CHUNK = 1024
 
-# Widest D of the bf16 kernel (MMA_DMAX in csrc/ce_proxy.cu).
+# Widest D of the bf16 kernel (CL_DMAX in csrc/ce_proxy.cu: a cluster of 8
+# CTAs × 256 columns).
 BF16_D_MAX = 2048
 _WIDE_D_ITEM = 'ROADMAP.md queue 2, "ce_proxy at D > 2048"'
 

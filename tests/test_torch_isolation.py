@@ -1,5 +1,5 @@
-"""The port stands alone: no JAX and no ``repro`` inside ``repro_torch`` or
-``chip_smoke.py``, and nothing silently runs on the CPU when CUDA is asked
+"""The port stands alone: no JAX and no ``repro`` inside ``repro_torch``,
+``chip_smoke.py`` or ``chip_variants.py``, and nothing silently runs on the CPU when CUDA is asked
 for on a machine without a card."""
 import ast
 import os
@@ -15,7 +15,8 @@ from repro_torch.core.craig import CraigConfig, CraigSelector
 from repro_torch.kernels import ops
 
 REPO = Path(__file__).resolve().parent.parent
-PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [
+    REPO / "chip_smoke.py", REPO / "chip_variants.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 

@@ -21,8 +21,10 @@ from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.kernels import fl_gains as kfl, ops, ref
 
-SIZES = (1, 7, 129, 1000)
-DIMS = (3, 22, 130)
+# n = 65: one row past a 64-row pool tile of the CUDA kernel; d = 257: past
+# its 64-wide resident cap, walked in chunks.
+SIZES = (1, 7, 65, 129, 1000)
+DIMS = (3, 22, 130, 257)
 EPS32 = float(np.finfo(np.float32).eps)
 
 

@@ -8,7 +8,11 @@ vocab-major, so it receives ``W.T`` of the reference's (D, V) matrix.
 
 Tolerances, stated with their reason:
   * fp32 twin against the fp32 reference kernel and the dense oracle: rtol
-    1e-5, atol 1e-6 — the same arithmetic in another summation order;
+    1e-5, atol 1e-6 — the same arithmetic in another summation order; at
+    the wide edge shapes (D ≥ 250: logits of ~20 summed over D terms in
+    another order, an absolute error of up to 4·√D·ε₃₂·max|h|·max|W| that
+    moves p by as much relative, and g by that times max|W|) rtol 1e-4,
+    atol 4·√D·ε₃₂·max|h|·max|W|²;
   * bf16 (both products in bf16, fp32 accumulation): atol 2⁻⁸·max|W| — g
     is a convex combination of W rows minus a W row, and a p value whose
     fp32 exp differs in the last bit can round to the neighbouring bf16
@@ -41,7 +45,14 @@ SHAPES = [  # (T, D, V, valid_v)
     (10, 12, 20, 17),     # ragged T, D and V, padded vocab
     (33, 16, 100, 97),    # T and V straddle several blocks
     (16, 8, 129, 129),    # V one past a block boundary
+    # the CUDA kernel's tiling edges (128-token clusters, 256-column CTAs,
+    # 64-row vocab blocks), held to the reference at the shapes chip_smoke.py
+    # holds the kernel to this twin
+    (1, 2048, 4099, 4097),     # one token, the widest D
+    (129, 2040, 4099, 4097),   # D not a multiple of 256, ragged T and V
+    (37, 250, 3001, 2999),     # D % 8 != 0: the staged route
 ]
+EPS32 = float(np.finfo(np.float32).eps)
 DTYPES = {"fp32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bfloat16)}
 
 
@@ -63,13 +74,17 @@ def _t(a):
 def test_ce_proxy_twin_matches_reference_kernel(T, D, V, valid_v, dtype):
     jd, td = DTYPES[dtype]
     h, w, y = _inputs(T, D, V, valid_v, seed=T * 100 + V)
+    bt, bv = (8, 16) if V < 1000 else (128, 512)  # interpret mode: few grid steps
     want = np.asarray(jops.ce_proxy(jnp.asarray(h), jnp.asarray(w), jnp.asarray(y),
-                                    block_t=8, block_v=16, valid_v=valid_v,
+                                    block_t=bt, block_v=bv, valid_v=valid_v,
                                     compute_dtype=jd, interpret=True))
     got = ops.ce_proxy(_t(h), _t(w.T), _t(y), valid_v=valid_v, compute_dtype=td).numpy()
     assert got.shape == (T, D) and got.dtype == np.float32
-    if dtype == "fp32":
+    if dtype == "fp32" and D <= 16:
         np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
+    elif dtype == "fp32":  # logit rounding over D terms, moved into p and g
+        atol = 4.0 * np.sqrt(D) * EPS32 * np.abs(h).max() * np.abs(w).max() ** 2
+        np.testing.assert_allclose(got, want, rtol=1e-4, atol=atol)
     else:
         np.testing.assert_allclose(got, want, rtol=0, atol=2.0**-8 * np.abs(w).max())
 
@@ -149,8 +164,11 @@ def test_lm_unembed_input_proxy_matches_reference(dtype, masked):
         compute_dtype=jd))
     got = tproxy.lm_unembed_input_proxy(_t(h), _t(w.T), _t(y), tm, chunk=5, valid_v=37,
                                         compute_dtype=td).numpy()
-    if dtype == "fp32":
+    if dtype == "fp32" and D <= 16:
         np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
+    elif dtype == "fp32":  # logit rounding over D terms, moved into p and g
+        atol = 4.0 * np.sqrt(D) * EPS32 * np.abs(h).max() * np.abs(w).max() ** 2
+        np.testing.assert_allclose(got, want, rtol=1e-4, atol=atol)
     else:
         np.testing.assert_allclose(got, want, rtol=0, atol=2.0**-8 * np.abs(w).max())
 

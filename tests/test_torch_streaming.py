@@ -51,7 +51,7 @@ def _states(feats, budget, chunk, prefix=None, eps=0.15):
     js = JS.init_streaming_state(budget, feats.shape[1], eps=eps, init_selected=prefix,
                                  init_feats=pre_f)
     ps = S.init_streaming_state(budget, feats.shape[1], eps=eps, init_selected=prefix,
-                                init_feats=pre_f)
+                                init_feats=pre_f, device="cpu")
     for lo in range(0, len(feats), chunk):
         hi = min(lo + chunk, len(feats))
         idx = np.arange(lo, hi, dtype=np.int32)
@@ -93,9 +93,20 @@ def test_multi_delta_ingest_matches_reference(chunk):
     assert_same_state(js, ps)
 
 
+def test_init_streaming_state_defaults_to_the_card(monkeypatch):
+    """The functional core's entry runs on the card unless the caller asks
+    for the CPU: without CUDA the default raises with the hint."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        S.init_streaming_state(6, 4)
+    st = S.init_streaming_state(6, 4, device="cpu")
+    assert all(t.device.type == "cpu" for t in st)
+    assert st.capacity == 6 and st.sel_feats.shape[-1] == 4
+
+
 def test_ingest_does_not_write_into_the_state_it_is_given():
     feats, _ = _clusters(80, 4, 8, seed=3)
-    st = S.init_streaming_state(6, 4)
+    st = S.init_streaming_state(6, 4, device="cpu")
     st = S.ingest_delta(st, feats[:40], np.arange(40, dtype=np.int32), 0.15)
     before = [t.clone() for t in st]
     S.ingest_delta(st, feats[40:], np.arange(40, 80, dtype=np.int32), 0.15)
@@ -260,8 +271,8 @@ def test_streaming_config_from_reference():
         eps=0.1, finalize_impl="cuda", finalize_block_m=64)
     assert E.get_engine("streaming") is E.StreamingEngine
     with pytest.raises(ValueError, match="finalize impl"):
-        S.streaming_result_blocked(S.init_streaming_state(2, 3), torch.zeros(4, 3), 2,
-                                   impl="pallas")
+        S.streaming_result_blocked(S.init_streaming_state(2, 3, device="cpu"),
+                                   torch.zeros(4, 3), 2, impl="pallas")
 
 
 def test_fl_replay_kernel_refuses_cpu_tensors():
