@@ -37,18 +37,23 @@ version:
      greedy, the exact γ through ``pairwise_l2`` — then weighted IG on the
      coreset; the class-0 graph held to the plain twin's, the smallest
      class selected through both routes; ``topk_sim`` and ``pairwise_l2``
-     timed at the path's shapes (``torch.cdist`` beside ``pairwise_l2``);
+     timed at the path's shapes (``torch.cdist`` beside ``pairwise_l2``;
+     beside ``topk_sim`` its issue bound, registers and CTAs per SM, the
+     cuBLAS product of its shape, and its time at k = 256); a
+     ``SparseConfig(k=256)`` selection on the card held to the CPU's;
   8. the streaming coreset service, slice 3's second path:
      ``CoresetService(budget=1024, dim=2048)`` fed 16 seeded deltas of
      4,096 rows, every finalize through ``fl_replay``, the four installed
      selections held to the dense finalize; ``fl_replay`` timed at the
-     service's shape; a ``launch/serve.py --coreset --device cuda`` round
-     trip in a subprocess;
+     service's shape (with its issue bound, registers, CTAs per SM and
+     the cuBLAS product of its shape); a ``launch/serve.py --coreset
+     --device cuda`` round trip in a subprocess;
   9. the report: one JSON line per the six kernels, then the last line,
      {"ok": true, "device": {...}}.
 
-Before phases 2–8, ``kernels`` compares ``topk_sim``, ``pairwise_l2`` and
-``fl_replay`` with their plain versions at ragged shapes.
+Before phases 2–8, ``kernels`` compares ``topk_sim`` (both list routes:
+k ≤ 128 and k > 128 up to k = n), ``pairwise_l2`` and ``fl_replay`` with
+their plain versions at ragged shapes.
 
 Any failure raises and exits non-zero.  Run from the repository root:
 
@@ -115,10 +120,17 @@ COV_N, COV_D, COV_CLASSES = 581_012, 54, 7
 COV_SIZES = {0: 223_780, 1: 112_297, 2: 74_513, 3: 56_464, 4: 44_663, 5: 37_146, 6: 32_149}
 COV_BUDGETS = {0: 22_378, 1: 11_230, 2: 7_451, 3: 5_646, 4: 4_466, 5: 3_715, 6: 3_215}
 COV_K = 64  # SparseConfig().k
+# (n, d, k): k <= 128 keeps the lists in registers (d > 64 walks in chunks:
+# 130, 257), k > 128 in the outputs' rows, up to k = n
 TOPK_CHECKS = ((1, 1, 1), (37, 5, 7), (130, 12, 23), (300, 33, 64), (1000, 54, 64),
-               (4099, 3, 33), (2000, 130, 100), (5000, 54, 128))  # (n, d, k)
+               (4099, 3, 33), (2000, 130, 100), (5000, 54, 128), (1500, 257, 128),
+               (2000, 54, 129), (2000, 54, 256), (4099, 22, 1024), (300, 12, 300),
+               (700, 100, 200))
 PAIR_CHECKS = ((1, 1, 1), (37, 5, 3), (130, 129, 22), (999, 1001, 7), (1000, 777, 54))
-REPLAY_CHECKS = ((1, 1, 1), (37, 5, 3), (130, 129, 22), (1000, 300, 54), (3000, 1024, 2048))
+# (n, m, d): d = 2,050 is not a multiple of 4 (no bulk copies) and ends in a
+# ragged 32-dim chunk; m = 1,000 ends in a ragged candidate tile
+REPLAY_CHECKS = ((1, 1, 1), (37, 5, 3), (130, 129, 22), (1000, 300, 54), (3000, 1024, 2048),
+                 (1000, 300, 2050), (3001, 1000, 2048))
 # Slice 3, path 2: the streaming coreset service at the width of the
 # qwen3-1.7b proxies (ce_proxy's D); eps = 0.15 gives 56 sieves.
 SVC_BUDGET, SVC_DIM, SVC_DELTAS, SVC_ROWS, SVC_CLUSTERS = 1024, 2048, 16, 4096, 64
@@ -174,21 +186,44 @@ def max_sm_clock_hz() -> float:
     return 1e6 * float(proc.stdout.strip().splitlines()[0])
 
 
-# Issue slots per (row, candidate) pair of fl_gains.cu, counted from its
-# source: per feature dim one FFMA plus the shared loads (8 LDS.64 + 2
-# LDS.128 per two dims of 32 pairs, 10/64 a pair-dim), and an epilogue of
-# ~14 (norm sum, −2·dot, max, the IEEE sqrtf sequence of ~8, subtract,
-# relu, accumulate).
-FL_SLOTS_PER_DIM = 1.0 + 10.0 / 64.0
-FL_SLOTS_EPILOGUE = 14.0
+def occupancy(lib, entry: str, *args) -> tuple[int, int]:
+    """(registers per thread, CTAs per SM) from a source's C occupancy entry."""
+    import ctypes
+
+    regs, ctas = ctypes.c_int(0), ctypes.c_int(0)
+    status = getattr(lib, entry)(*args, ctypes.addressof(regs), ctypes.addressof(ctas))
+    if status != 0:
+        raise RuntimeError(f"{entry}: cudaError {status}")
+    return regs.value, ctas.value
 
 
-def issue_seconds(torch, n: int, m: int, d: int, sm_clock: float) -> float:
-    """fl_gains' instruction-issue bound: the pairs' issue slots over the
-    card's warp-instruction rate (4 schedulers an SM, one warp instruction
-    of 32 threads each per clock, at the maximum SM clock)."""
+# Issue slots per (row, candidate) pair, counted from each source: (slots a
+# feature dim, slots of the epilogue).
+ISSUE_SLOTS = {
+    # fl_gains.cu: one FFMA a dim plus the shared loads (8 LDS.64 + 2
+    # LDS.128 per two dims of 32 pairs, 10/64 a pair-dim); an epilogue of
+    # ~14 (norm sum, −2·dot, max, the correctly rounded root of ~8,
+    # subtract, relu, accumulate).
+    "fl_gains": (1.0 + 10.0 / 64.0, 14.0),
+    # topk_sim.cu: 8 LDS.64 + 8 LDS.128 per 4 dims of 32 pairs (16/128 a
+    # pair-dim); ~5 for the epilogue (norm sum, −2·dot), the bound compare,
+    # a ballot a row and the tile's ring, and the merge's share.
+    "topk_sim": (1.0 + 16.0 / 128.0, 5.0),
+    # fl_replay.cu: 20 LDS.128 and a swizzle op per 4 dims of 64 pairs
+    # (21/256 a pair-dim); ~26 for the epilogue (norms, root, select,
+    # park), the walk (~8) and the column sums (2).
+    "fl_replay": (1.0 + 21.0 / 256.0, 26.0),
+}
+
+
+def issue_seconds(torch, kernel: str, n: int, m: int, d: int, sm_clock: float) -> float:
+    """A kernel's instruction-issue bound: the pairs' issue slots
+    (ISSUE_SLOTS) over the card's warp-instruction rate (4 schedulers an
+    SM, one warp instruction of 32 threads each per clock, at the maximum
+    SM clock)."""
+    per_dim, epilogue = ISSUE_SLOTS[kernel]
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    slots = n * m * (d * FL_SLOTS_PER_DIM + FL_SLOTS_EPILOGUE) / 32.0
+    slots = n * m * (d * per_dim + epilogue) / 32.0
     return slots / (sms * 4 * sm_clock)
 
 
@@ -565,6 +600,59 @@ def coverage64(torch, x, idx, block: int = 8192) -> float:
                for lo in range(0, x.shape[0], block))
 
 
+def hold_sparse_selection(torch, x, a, b, label: str) -> str:
+    """Hold sparse selection ``a`` to ``b`` under the tie rule: equal
+    indices and γ, or — after a near-tie flip in the graph — fp64
+    objectives within 1e-3.  Returns the verdict."""
+    import numpy as np
+
+    if np.array_equal(a.indices, b.indices):
+        if not np.array_equal(a.weights, b.weights):
+            raise AssertionError(f"{label}: same medoids, different γ")
+        return "identical indices and γ"
+    ca, cb = coverage64(torch, x, a.indices), coverage64(torch, x, b.indices)
+    if abs(ca - cb) > 1e-3 * max(ca, cb):
+        raise AssertionError(f"{label}: objectives {ca} and {cb} differ by more than 1e-3")
+    return f"indices differ after a near-tie; fp64 L(S) {ca:.4f} vs {cb:.4f}"
+
+
+def product_ms(torch, x, y, block: int) -> float:
+    """CUDA-event time of the cuBLAS fp32 product x·yᵀ (TF32 off) in column
+    blocks of ``block``: the product alone, at a redesigned kernel's shape."""
+    def run():
+        for lo in range(0, y.shape[0], block):
+            torch.mm(x, y[lo:lo + block].T)
+    return median_ms(torch, run, 3, warm=1)
+
+
+def design_figures(torch, kernel: str, n: int, m: int, d: int) -> dict:
+    """A redesigned kernel's issue bound (ISSUE_SLOTS) and its registers and
+    CTAs per SM (from its C occupancy entry) at a main-path shape."""
+    from repro_torch.kernels import _build
+
+    lib = _build.library(kernel)
+    if kernel == "topk_sim":
+        regs, ctas = occupancy(lib, "topk_sim_occupancy", d, COV_K)
+    else:
+        regs, ctas = occupancy(lib, "fl_replay_occupancy")
+    return {"issue_bound_ms": 1e3 * issue_seconds(torch, kernel, n, m, d, max_sm_clock_hz()),
+            "registers": regs, "ctas_per_sm": ctas}
+
+
+def covtype_pool(dev):
+    """The Covtype-shaped pool: (features on ``dev``, numpy labels)."""
+    import numpy as np
+
+    from repro_torch.core.proxy import convex_feature_proxy
+    from repro_torch.data.synthetic import make_classification
+
+    x_np, y = make_classification(COV_N, COV_D, COV_CLASSES, seed=0)
+    x_np = x_np / np.abs(x_np).max()
+    if {int(c): int(k) for c, k in zip(*np.unique(y, return_counts=True))} != COV_SIZES:
+        raise AssertionError("make_classification no longer gives the Covtype-shaped sizes")
+    return convex_feature_proxy(x_np, device=dev), y
+
+
 def covtype_selection(torch, ops, card, dev, peaks) -> dict:
     """Slice 3's first path: per-class CRAIG on the Covtype-shaped pool with
     engine='auto' (the sparse engine), then two epochs of weighted IG.
@@ -574,18 +662,12 @@ def covtype_selection(torch, ops, card, dev, peaks) -> dict:
     from repro_torch.core import engines as E
     from repro_torch.core.craig import CraigConfig, CraigSelector
     from repro_torch.core.engines import sparse
-    from repro_torch.core.proxy import convex_feature_proxy
-    from repro_torch.data.synthetic import make_classification
     from repro_torch.examples.quickstart import logistic, schedule_for
-    from repro_torch.kernels import pairwise_l2 as kpw, topk_sim as ktk
+    from repro_torch.kernels import _build, pairwise_l2 as kpw, topk_sim as ktk
     from repro_torch.optim import ig_run
 
     fp32_peak, _, mem_bw = peaks
-    x_np, y = make_classification(COV_N, COV_D, COV_CLASSES, seed=0)
-    x_np = x_np / np.abs(x_np).max()
-    if {int(c): int(k) for c, k in zip(*np.unique(y, return_counts=True))} != COV_SIZES:
-        raise AssertionError("make_classification no longer gives the Covtype-shaped sizes")
-    feats = convex_feature_proxy(x_np, device=dev)
+    feats, y = covtype_pool(dev)
     selector = CraigSelector(CraigConfig(fraction=0.1, per_class=True), device=dev)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -642,6 +724,14 @@ def covtype_selection(torch, ops, card, dev, peaks) -> dict:
     log(f"[7] topk_sim at class 0 ({n0} × {COV_D}, k={COV_K}): kernel against plain twin: "
         f"max |Δvals| {g_err:.3e} (tol {tol0:.3e}), {g_diff} of {n0 * COV_K} index slots "
         f"differ (near-ties); {topk}")
+    log(f"[7] topk_sim at class 0, beside it: {design_figures(torch, 'topk_sim', n0, n0, COV_D)}; "
+        f"product_ms {product_ms(torch, x0, x0, 8192):.3f} (cuBLAS fp32 x·xᵀ in column "
+        f"blocks of 8,192, TF32 off; not the same function)")
+    # k past the register lists, as an extra record (not on the main path)
+    t256 = median_ms(torch, lambda: ktk.topk_sim_cuda(x0, sq0, dm0, 256), 2, warm=1)
+    regs, ctas = occupancy(_build.library("topk_sim"), "topk_sim_occupancy", COV_D, 256)
+    log(f"[7] topk_sim at class 0 with k=256 (lists in the outputs' rows): {t256:.3f} ms; "
+        f"{regs} registers, {ctas} CTAs/SM; {card}")
 
     # pairwise_l2 at one class-0 assignment block against its medoids
     sel0 = torch.as_tensor(np.searchsorted(np.nonzero(y == 0)[0],
@@ -679,18 +769,28 @@ def covtype_selection(torch, ops, card, dev, peaks) -> dict:
                                    device=dev).select(x6)
         torch.cuda.synchronize()
         runs[impl + "_s"] = time.perf_counter() - t0
-    a, b = runs["cuda"], runs["torch"]
-    if np.array_equal(a.indices, b.indices):
-        if not np.array_equal(a.weights, b.weights):
-            raise AssertionError("class 6: same medoids, different γ")
-        verdict6 = "identical indices and γ"
-    else:
-        ca, cb = coverage64(torch, x6, a.indices), coverage64(torch, x6, b.indices)
-        if abs(ca - cb) > 1e-3 * max(ca, cb):
-            raise AssertionError(f"class 6: objectives {ca} and {cb} differ by more than 1e-3")
-        verdict6 = f"indices differ after a near-tie; fp64 L(S) {ca:.4f} vs {cb:.4f}"
+    a = runs["cuda"]
+    verdict6 = hold_sparse_selection(torch, x6, a, runs["torch"], "class 6")
     log(f"[7] class 6 ({len(pool6)} × {COV_D}, r={a.size}) through both routes: kernels "
         f"{runs['cuda_s']:.3f}s, plain {runs['torch_s']:.3f}s; {verdict6}")
+
+    # k = 256 through the normal entry point (bench_selection.py's
+    # _sparse_parity shape): the card's selection against the CPU's
+    rng = np.random.RandomState(0)
+    centers = rng.randn(32, 32).astype(np.float32) * 4.0
+    xs_np = centers[rng.randint(0, 32, 2048)] + rng.randn(2048, 32).astype(np.float32)
+    cfg256 = CraigConfig(fraction=0.05, engine=E.SparseConfig(k=256), per_class=False)
+    before = ops.LAUNCHES["topk_sim"]
+    a = CraigSelector(cfg256, device=dev).select(xs_np)
+    torch.cuda.synchronize()
+    if ops.LAUNCHES["topk_sim"] != before + 1:
+        raise AssertionError("SparseConfig(k=256) on the card did not launch topk_sim")
+    b = CraigSelector(cfg256, device="cpu").select(xs_np)
+    verdict256 = hold_sparse_selection(torch, torch.as_tensor(xs_np, device=dev), a, b,
+                                       "SparseConfig(k=256)")
+    log(f"[7] SparseConfig(k=256) selection of 2,048 × 32 (32 clusters, fraction 0.05) on the "
+        f"card (one topk_sim launch) against the CPU's: {verdict256}; Σγ "
+        f"{float(np.sum(a.weights, dtype=np.float64)):.0f}")
 
     # two epochs of weighted IG on the coreset: class 0 against the rest
     grad_one, full_loss = logistic(feats, (y == 0).astype(np.int64), LAM)
@@ -711,6 +811,19 @@ def covtype_selection(torch, ops, card, dev, peaks) -> dict:
     return {"topk_sim": topk, "pairwise_l2": pair}
 
 
+def service_deltas(torch, dev) -> list:
+    """The service's seeded deltas: SVC_DELTAS × (SVC_ROWS, SVC_DIM) rows of
+    a SVC_CLUSTERS-component Gaussian mixture, made on the card."""
+    gen = torch.Generator(device=dev).manual_seed(1)
+    centers = torch.randn(SVC_CLUSTERS, SVC_DIM, device=dev, generator=gen)
+    deltas = []
+    for _ in range(SVC_DELTAS):
+        comp = torch.randint(0, SVC_CLUSTERS, (SVC_ROWS,), device=dev, generator=gen)
+        deltas.append(centers[comp] + 0.5 * torch.randn(SVC_ROWS, SVC_DIM, device=dev,
+                                                        generator=gen))
+    return deltas
+
+
 def coreset_service(torch, ops, card, dev, peaks) -> dict:
     """Slice 3's second path: the streaming coreset service on the card.
     Every drain finalizes through ``fl_replay``; the four installed
@@ -721,13 +834,7 @@ def coreset_service(torch, ops, card, dev, peaks) -> dict:
     from repro_torch.serve import CoresetService
 
     fp32_peak, _, mem_bw = peaks
-    gen = torch.Generator(device=dev).manual_seed(1)
-    centers = torch.randn(SVC_CLUSTERS, SVC_DIM, device=dev, generator=gen)
-    deltas = []
-    for _ in range(SVC_DELTAS):
-        comp = torch.randint(0, SVC_CLUSTERS, (SVC_ROWS,), device=dev, generator=gen)
-        deltas.append(centers[comp] + 0.5 * torch.randn(SVC_ROWS, SVC_DIM, device=dev,
-                                                        generator=gen))
+    deltas = service_deltas(torch, dev)
     svc = CoresetService(SVC_BUDGET, SVC_DIM, mode="sync", device=dev)
     sel = svc.selector
     L = streaming.num_sieves(SVC_BUDGET, sel.config.eps)
@@ -803,6 +910,9 @@ def coreset_service(torch, ops, card, dev, peaks) -> dict:
            **bound(t_ops, t_bytes), "library_ms": None, "launches": launches["fl_replay"],
            "max_abs_err_main": max(c["max_gain_err"] for c in checks)}
     log(f"[8] fl_replay at the last finalize ({n} × {m} × {SVC_DIM}): {rep}")
+    log(f"[8] fl_replay beside it: {design_figures(torch, 'fl_replay', n, m, SVC_DIM)}; "
+        f"product_ms {product_ms(torch, pool, e, m):.3f} (cuBLAS fp32 x·eᵀ, TF32 off; not "
+        f"the same function)")
     del svc, deltas, pool, e, results
     torch.cuda.empty_cache()
     serve_round_trip(card)
@@ -1036,7 +1146,7 @@ def main() -> None:
                 "plain_ms": median_ms(torch, plain),
                 "bound_ms": 1e3 * max(t_ops, t_bytes),
                 "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-                "issue_bound_ms": 1e3 * issue_seconds(torch, n, n, d, sm_clock),
+                "issue_bound_ms": 1e3 * issue_seconds(torch, "fl_gains", n, n, d, sm_clock),
             }
             if n == CLASS_SIZES[0]:
                 results[kname] = r

@@ -53,8 +53,8 @@ SIGNATURES: dict[str, dict[str, tuple]] = {
         "ce_proxy_bf16": (_P,) * 4 + (_I,) * 4 + (_P,),
     },
     "topk_sim": {
-        "topk_sim_max_k": (),
         "topk_sim_f32": (_P,) * 5 + (_I,) * 3 + (_P,),
+        "topk_sim_occupancy": (_I, _I, _P, _P),
     },
     "pairwise_l2": {
         "pairwise_l2_f32": (_P,) * 5 + (_I,) * 3 + (_P,),
@@ -62,6 +62,7 @@ SIGNATURES: dict[str, dict[str, tuple]] = {
     "fl_replay": {
         "fl_replay_block_rows": (),
         "fl_replay_f32": (_P,) * 11 + (_I,) * 3 + (_P,),
+        "fl_replay_occupancy": (_P, _P),
     },
 }
 

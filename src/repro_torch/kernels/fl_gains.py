@@ -202,7 +202,10 @@ def fl_replay_cuda(x, e, sqx, sqe, valid, d_max, cur0):
       cur0: (n,) fp32 initial cover state.
     Returns:
       (gains (m,) fp32, cur (n,) fp32, best_v (n,) fp32, best_i (n,) int32);
-      gains are the row blocks' partials summed over axis 0.
+      gains are the partials of each block of ``fl_replay_block_rows()``
+      (64) pool rows summed over axis 0; a CTA of the kernel owns 128 rows
+      and writes two such partials, so the sum keeps the order and the bits
+      of a 64-row partition.
     """
     if x.device.type != "cuda":
         raise ValueError(f"the fl_replay CUDA kernel takes CUDA tensors, got {x.device}")

@@ -191,7 +191,7 @@ def topk_sim(
 
     Args:
       x: (n, d) features (cast to fp32).
-      k: neighbours per row, 1 ≤ k ≤ n (the kernel takes k ≤ 128).
+      k: neighbours per row, 1 ≤ k ≤ n.
       d_max: similarity offset; defaults to 2·max‖x‖ + 1e-6.
       impl: 'auto' | 'cuda' | 'torch', as ``gains_impl`` above.
       block_m: column tile of the plain twin (the kernel uses its own).

@@ -14,13 +14,9 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.fl_gains import _require, _stream
 
-__all__ = ["topk_sim_cuda", "topk_sim_torch", "MAX_K"]
+__all__ = ["topk_sim_cuda", "topk_sim_torch"]
 
 LAUNCHES = _build.LAUNCHES
-
-# Largest k the kernel keeps per row (each warp holds 32·4 list entries).
-MAX_K = 128
-_MAX_K_ITEM = "ROADMAP.md queue 2, 'topk_sim past k = 128'"
 
 
 def topk_sim_cuda(x, sq, d_max, k: int):
@@ -29,7 +25,8 @@ def topk_sim_cuda(x, sq, d_max, k: int):
     Args:
       x: (n, d) fp32 (CUDA, contiguous); sq: (n,) fp32 squared row norms.
       d_max: 0-d fp32 tensor on the same card.
-      k: neighbours per row, 1 ≤ k ≤ min(n, 128).
+      k: neighbours per row, 1 ≤ k ≤ n (k ≤ 128 keeps each row's list in
+        its warp's registers, larger k in the rows of the outputs).
     Returns:
       (vals (n, k) fp32 descending, idx (n, k) int32), ties to the lower
       column.
@@ -43,9 +40,6 @@ def topk_sim_cuda(x, sq, d_max, k: int):
         raise ValueError(f"unsupported operand shape n={n}, d={d}")
     if not 1 <= k <= n:
         raise ValueError(f"k={k} outside [1, n={n}]")
-    if k > MAX_K:
-        raise ValueError(f"the topk_sim kernel keeps at most {MAX_K} neighbours per "
-                         f"row, got k={k} ({_MAX_K_ITEM})")
     dev = x.device
     _require(x, "x", torch.float32, (n, d), dev)
     _require(sq, "sq", torch.float32, (n,), dev)
