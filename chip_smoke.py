@@ -13,8 +13,11 @@ version:
      against their plain versions at ragged shapes and at both main-path
      pool sizes, then timed with CUDA events at the main-path shape beside
      their plain versions and bounds; ``ce_proxy`` (bf16 and fp32) against
-     its plain version at T = 4,096, D = 2048, V = 151,936 and at ragged
-     shapes, then timed the same way;
+     its plain version at T = 4,096, D = 2048, V = 151,936, at the widths of
+     qwen2-7b, granite-3-8b and nemotron-4-15b (D 3,584 to 6,144) and at
+     ragged shapes up to D = 8,200, then timed the same way, the three wide
+     widths beside the einsum head (``core.proxy.lm_unembed_input_proxy``)
+     with each bf16 route's cluster size and clusters in flight;
   3. select: per-class CRAIG (fraction 0.1, engine='auto') on an
      Ijcnn1-shaped pool (49,990 × 22, two classes of 33,216 and 16,774) —
      the ``device`` engine, one ``fl_gains_argmax`` launch per greedy round —
@@ -37,9 +40,10 @@ version:
      greedy, the exact γ through ``pairwise_l2`` — then weighted IG on the
      coreset; the class-0 graph held to the plain twin's, the smallest
      class selected through both routes; ``topk_sim`` and ``pairwise_l2``
-     timed at the path's shapes (``torch.cdist`` beside ``pairwise_l2``;
-     beside ``topk_sim`` its issue bound, registers and CTAs per SM, the
-     cuBLAS product of its shape, and its time at k = 256); a
+     timed at the path's shapes (beside ``pairwise_l2`` ``torch.cdist``,
+     its issue bound, registers and CTAs per SM; beside ``topk_sim`` the
+     same figures, the cuBLAS product of its shape, and its time at
+     k = 256); a
      ``SparseConfig(k=256)`` selection on the card held to the CPU's;
   8. the streaming coreset service, slice 3's second path:
      ``CoresetService(budget=1024, dim=2048)`` fed 16 seeded deltas of
@@ -107,7 +111,22 @@ CE_SHAPES = (  # (T, D, V, valid_v): main-path shape, then ragged ones
     (1, 2048, 4099, 4097),
     (129, 2040, 4099, 4097),
     (37, 250, 3001, 2999),
+    # the dense configurations past 2048 columns at their published (D, V),
+    # T = 4,096 (an 8 × 512 batch): route 2 (512 columns a CTA) in 7- and
+    # 8-CTA clusters, and in a non-portable 12-CTA cluster
+    (4096, 3584, 152_064, 152_064),
+    (4096, 4096, 49_155, 49_155),
+    (4096, 6144, 256_000, 256_000),
+    # ragged wide shapes: route 2 just past 2,048 and just past 4,096
+    # columns (a non-portable 9-CTA cluster); route 2 with D % 8 != 0 (the
+    # staged route); the SIMT route past 8,192
+    (129, 2056, 4099, 4097),
+    (37, 4104, 3001, 2999),
+    (5, 6150, 1000, 997),
+    (64, 8200, 4099, 4097),
 )
+# The wide widths timed beside the einsum head, by config.
+CE_WIDE = {3584: "qwen2-7b", 4096: "granite-3-8b", 6144: "nemotron-4-15b"}
 CE_TIMED = {"bfloat16": 5, "float32": 3}  # CUDA-event-timed launches
 PROXY_TIMED = 5  # CUDA-event-timed calls of each proxy path at full width
 # Device memory still allocated after a trainer is deleted; its parameters
@@ -126,7 +145,12 @@ TOPK_CHECKS = ((1, 1, 1), (37, 5, 7), (130, 12, 23), (300, 33, 64), (1000, 54, 6
                (4099, 3, 33), (2000, 130, 100), (5000, 54, 128), (1500, 257, 128),
                (2000, 54, 129), (2000, 54, 256), (4099, 22, 1024), (300, 12, 300),
                (700, 100, 200))
-PAIR_CHECKS = ((1, 1, 1), (37, 5, 3), (130, 129, 22), (999, 1001, 7), (1000, 777, 54))
+# (n, m, d) of pairwise_l2: each loading route of the kernel: bulk copies
+# (d = 2 mod 4 up to 58), staged loads (d = 0 mod 4, odd d, ragged tiles)
+# and the chunked route past 58 dims (ragged chunks at d = 130 and 2,050)
+PAIR_CHECKS = ((1, 1, 1), (37, 5, 3), (130, 129, 22), (999, 1001, 7), (1000, 777, 54),
+               (500, 700, 32), (100, 300, 57), (77, 1000, 58), (5, 1000, 59),
+               (300, 1000, 130), (257, 513, 2050))
 # (n, m, d): d = 2,050 is not a multiple of 4 (no bulk copies) and ends in a
 # ragged 32-dim chunk; m = 1,000 ends in a ragged candidate tile
 REPLAY_CHECKS = ((1, 1, 1), (37, 5, 3), (130, 129, 22), (1000, 300, 54), (3000, 1024, 2048),
@@ -213,6 +237,10 @@ ISSUE_SLOTS = {
     # (21/256 a pair-dim); ~26 for the epilogue (norms, root, select,
     # park), the walk (~8) and the column sums (2).
     "fl_replay": (1.0 + 21.0 / 256.0, 26.0),
+    # pairwise_l2.cu: 8 LDS.64 + 4 LDS.128 per 2 dims of 64 pairs (12/128 a
+    # pair-dim); ~13 for the epilogue (norm sum, −2·dot, max, the root of
+    # ~9, the column mask and the store).
+    "pairwise_l2": (1.0 + 12.0 / 128.0, 13.0),
 }
 
 
@@ -284,11 +312,57 @@ def ce_tol(w, dtype: str) -> float:
     return (2.0**-8 if dtype == "bfloat16" else 1e-4) * wmax
 
 
-def check_ce_proxy(torch, ops, kce, dev, gen, peaks) -> dict:
+def ce_route(D: int, lib=None) -> dict:
+    """The bf16 route ``ce_proxy`` takes at D (1, 2: the cluster kernel with
+    one or two 256-column slices a CTA; 3: SIMT), with its CTAs per cluster
+    and how many such clusters the card holds at once; ``lib``: another
+    build of the source (default: the committed one)."""
+    import ctypes
+
+    from repro_torch.kernels import _build
+
+    lib = lib or _build.library("ce_proxy")
+    ctas, clusters = ctypes.c_int(0), ctypes.c_int(0)
+    status = lib.ce_proxy_bf16_clusters(D, ctypes.addressof(ctas), ctypes.addressof(clusters))
+    if status != 0:
+        raise RuntimeError(f"ce_proxy_bf16_clusters(D={D}): cudaError {status}")
+    return {"route": lib.ce_proxy_bf16_auto_route(D), "cluster_ctas": ctas.value,
+            "clusters_at_once": clusters.value}
+
+
+def ce_bound(T: int, D: int, V: int, es: int, peak: float, mem_bw: float) -> dict:
+    """``ce_proxy``'s bound: 4·T·V·D operations at ``peak``, or its bytes
+    (h and W of ``es`` bytes an element, int32 labels, the fp32 output)."""
+    return bound(4.0 * T * V * D / peak, (es * (T * D + V * D) + 4 * T + 4 * T * D) / mem_bw)
+
+
+def time_wide_ce(torch, kce, h, w, y, vv, bf16_peak, mem_bw) -> dict:
+    """The bf16 kernel at a wide width beside the einsum head (the library
+    path, ``core.proxy.lm_unembed_input_proxy``, on the same tokens as one
+    8 × 512 batch) and the plain twin, with the bound 4·T·V·D over the
+    bf16 peak (or the bytes, if larger)."""
+    from repro_torch.core.proxy import lm_unembed_input_proxy
+
+    T, D = h.shape
+    V = w.shape[0]
+    hb, wb, yb = h.bfloat16(), w.bfloat16(), y.to(torch.int32)
+    hid, lab = hb.reshape(LM_BATCH, -1, D), y.reshape(LM_BATCH, -1)
+    return {
+        "ms": median_ms(torch, lambda: kce.ce_proxy_cuda(hb, wb, yb, vv), 5),
+        "einsum_head_ms": median_ms(torch, lambda: lm_unembed_input_proxy(
+            hid, wb, lab, chunk=1024, valid_v=vv, compute_dtype=torch.bfloat16), 5),
+        "plain_ms": median_ms(torch, lambda: kce.ce_proxy_torch(h, w, y, vv, torch.bfloat16),
+                              3, warm=1),
+        **ce_bound(T, D, V, 2, bf16_peak, mem_bw), **ce_route(D),
+    }
+
+
+def check_ce_proxy(torch, ops, kce, dev, gen, peaks, card) -> dict:
     """``ce_proxy`` kernel against its plain version in both dtypes at every
     shape of CE_SHAPES (labels include the last valid column), then CUDA-event
-    times at the main-path shape.  Returns the report entry (bf16, the main
-    path's dtype) and logs the fp32 figures beside it."""
+    times at the main-path shape, at the wide widths of CE_WIDE (beside the
+    einsum head) and at one width of the SIMT route.  Returns the report
+    entry (bf16, the main path's dtype) and logs the other figures."""
     fp32_peak, bf16_peak, mem_bw = peaks
     max_err = {"bfloat16": 0.0, "float32": 0.0}
     timed = {}
@@ -316,21 +390,31 @@ def check_ce_proxy(torch, ops, kce, dev, gen, peaks) -> dict:
             max_err[dname] = max(max_err[dname], err)
             log(f"[2] ce_proxy {dname} T={T} D={D} V={V} valid_v={vv}: max |err| "
                 f"{err:.3e} (tol {tol:.3e})")
+        if D in CE_WIDE and T == 4096:
+            r = time_wide_ce(torch, kce, h, w, y, vv, bf16_peak, mem_bw)
+            log(f"[2] ce_proxy bf16 at {CE_WIDE[D]}'s width (T={T}, D={D}, V={V}): kernel "
+                f"{r['ms']:.3f} ms, einsum head {r['einsum_head_ms']:.3f} ms, plain twin "
+                f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms ({r['bound_by']}); "
+                f"route {r['route']}, {r['cluster_ctas']} CTAs a cluster, "
+                f"{r['clusters_at_once']} clusters at once; {card}")
+        if ce_route(D)["route"] == 3:  # the SIMT route, timed at its one shape
+            hb, wb, yb = h.bfloat16(), w.bfloat16(), y.to(torch.int32)
+            t_simt = median_ms(torch, lambda: kce.ce_proxy_cuda(hb, wb, yb, vv), 3, warm=1)
+            log(f"[2] ce_proxy bf16 SIMT route at T={T}, D={D}, V={V}: {t_simt:.3f} ms, "
+                f"{ce_bound(T, D, V, 2, bf16_peak, mem_bw)} (not optimised); {card}")
         if (T, D, V, vv) != CE_SHAPES[0]:
             continue
         for dname, reps in CE_TIMED.items():
             cd = getattr(torch, dname)
             hc, wc, yc = h.to(cd), w.to(cd), y.to(torch.int32)
-            es = 2 if dname == "bfloat16" else 4
-            t_ops = 4.0 * T * V * D / (bf16_peak if dname == "bfloat16" else fp32_peak)
-            t_bytes = (es * (T * D + V * D) + 4 * T + 4 * T * D) / mem_bw
+            es, peak = (2, bf16_peak) if dname == "bfloat16" else (4, fp32_peak)
             timed[dname] = {
                 "ms": median_ms(torch, lambda: kce.ce_proxy_cuda(hc, wc, yc, vv), reps),
                 "plain_ms": median_ms(torch, lambda: kce.ce_proxy_torch(h, w, y, vv, cd), reps),
-                "bound_ms": 1e3 * max(t_ops, t_bytes),
-                "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                **ce_bound(T, D, V, es, peak, mem_bw),
             }
             log(f"[2] ce_proxy {dname} at T={T}, D={D}, V={V}: {timed[dname]}")
+        log(f"[2] ce_proxy bf16 route at D={D}: {ce_route(D)}")
     return {**timed["bfloat16"], "max_abs_err": max_err["bfloat16"],
             "fp32": {**timed["float32"], "max_abs_err": max_err["float32"]}}
 
@@ -633,6 +717,8 @@ def design_figures(torch, kernel: str, n: int, m: int, d: int) -> dict:
     lib = _build.library(kernel)
     if kernel == "topk_sim":
         regs, ctas = occupancy(lib, "topk_sim_occupancy", d, COV_K)
+    elif kernel == "pairwise_l2":
+        regs, ctas = occupancy(lib, "pairwise_l2_occupancy", d)
     else:
         regs, ctas = occupancy(lib, "fl_replay_occupancy")
     return {"issue_bound_ms": 1e3 * issue_seconds(torch, kernel, n, m, d, max_sm_clock_hz()),
@@ -756,6 +842,8 @@ def covtype_selection(torch, ops, card, dev, peaks) -> dict:
             "library_ms": median_ms(torch, lambda: torch.cdist(xb, s0), 10),
             "launches": launches["pairwise_l2"], "max_abs_err_main": pw_err}
     log(f"[7] pairwise_l2 at one class-0 assignment block ({rows} × {r0} × {COV_D}): {pair}")
+    log(f"[7] pairwise_l2 beside it: {design_figures(torch, 'pairwise_l2', rows, r0, COV_D)}; "
+        f"{card}")
 
     # the smallest class through both routes
     pool6 = np.nonzero(y == 6)[0]
@@ -1152,7 +1240,7 @@ def main() -> None:
                 results[kname] = r
             log(f"[2] {kname} at n=m={n}, d={d}: {r}")
     results["ce_proxy"] = check_ce_proxy(torch, ops, kce, dev, gen,
-                                         (fp32_peak, bf16_peak, mem_bw))
+                                         (fp32_peak, bf16_peak, mem_bw), card)
     max_err.update(check_slice3_kernels(torch, ops, dev, gen))
 
     # -- 3. select: the main path -------------------------------------------

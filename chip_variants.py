@@ -6,21 +6,32 @@ into ``build/variants/`` and timing them with CUDA events beside the
 committed kernel, in one process on one card:
 
   --ablate               ``ce_proxy`` bf16 at T = 4,096, D = 2048,
-                         V = 151,936: the committed kernel, then copies with
-                         one part removed each (the cluster barriers, the
+                         V = 151,936 and at the wide widths of chip_smoke.py's
+                         CE_WIDE (route 2: 7-, 8- and 12-CTA clusters): the
+                         committed kernel, then copies with one part
+                         removed each (the cluster barriers, the
                          reduce-scatter, the logits product, the accumulate
                          product).  The copies compute wrong results; only
                          their times are read, as the cost of each part.
+                         Then the other cluster route forced where it takes
+                         the width, in a copy with ``auto_route`` patched
+                         (route 2 at D = 2048; route 1 widened to 14- or
+                         16-CTA clusters at D <= 4096), timed and held to the
+                         committed route within chip_smoke.py's ce_tol.
   --ce-baseline PATH     ``ce_proxy`` bf16: the committed kernel against
                          another ``ce_proxy.cu``: bitwise equal outputs at
-                         chip_smoke.py's CE_SHAPES, and both timed at the
+                         chip_smoke.py's CE_SHAPES of D <= 2048 (the widths
+                         an earlier source takes), and both timed at the
                          main-path shape.
-  --ablate-ring          ``topk_sim`` at the Covtype-shaped class 0 (k = 64)
-                         and ``fl_replay`` at the service's finalize: the
+  --ablate-ring          ``topk_sim`` at the Covtype-shaped class 0 (k = 64),
+                         ``fl_replay`` at the service's finalize and
+                         ``pairwise_l2`` at the main-path block's shape: the
                          committed kernel, then copies without a part (the
-                         product loop, the merge, the loads) or with 8
-                         consumer warps in ``topk_sim``; wrong results,
-                         only the times are read.
+                         product loop, the merge, the loads, the stores, the
+                         root) or with 8 consumer warps in ``topk_sim``;
+                         wrong results, only the times are read.  Then the
+                         SM clock and power that nvidia-smi reads while
+                         ``pairwise_l2`` runs for a few seconds.
   --topk-baseline PATH   ``topk_sim``: the committed kernel against another
                          ``topk_sim.cu`` (it may include the unchanged
                          ``dot_tile.cuh`` of csrc/): bitwise equal (vals,
@@ -32,6 +43,22 @@ committed kernel, in one process on one card:
                          best_v, best_i) at chip_smoke.py's REPLAY_CHECKS
                          and at the service's finalize shape (65,536 ×
                          1,024 × 2,048), both timed there.
+  --l2-baseline PATH     ``pairwise_l2``: the committed kernel against another
+                         ``pairwise_l2.cu`` (an earlier one includes
+                         ``dot_tile.cuh``: put it beside PATH): bitwise equal
+                         distances at chip_smoke.py's PAIR_CHECKS and at the
+                         main-path block (the Covtype-shaped selection's
+                         first class-0 block against its 22,378 medoids),
+                         every class's assignment equal, both timed at the
+                         block (committed, baseline, committed, baseline).
+  --twin-baseline PATH...  ``topk_sim``'s plain twin against other
+                         ``topk_sim.py`` files (e.g. ``git show <rev>:src/
+                         repro_torch/kernels/topk_sim.py > build/twin_prev.py``)
+                         on the first 20,000 rows of the Covtype-shaped
+                         class 0 (k = 64): results compared, each timed on
+                         the host CPU (committed, baselines, twice) and its
+                         peak bytes on the card's allocator, less the
+                         inputs.
   --fl-baseline PATH     ``fl_gains``/``fl_gains_argmax``: the committed
                          kernel against another ``fl_gains.cu`` (an earlier
                          version, e.g. ``git show <rev>:src/repro_torch/
@@ -46,6 +73,7 @@ Run from the repository root:
     python3 chip_variants.py --ce-baseline build/ce_prev.cu
     python3 chip_variants.py --topk-baseline build/topk_prev.cu \
         --replay-baseline build/replay_prev.cu
+    python3 chip_variants.py --l2-baseline build/base/pairwise_l2.cu
 
 Registers and CTAs per SM are logged for both sides: the committed
 kernels' from their C occupancy entries (cudaFuncGetAttributes and
@@ -86,6 +114,14 @@ ABLATIONS = {
         ("      wgmma_m64n256_rs_mn(acc, a[k], db, 1);", "      (void)db;"),
     ],
 }
+# The other cluster route, forced in a copy of csrc/ce_proxy.cu: route 2 for
+# every D <= 8192, or route 1 widened to non-portable clusters of up to 16
+# CTAs (D <= 4096).  Held to the committed route within ce_tol.
+ROUTE_FORCES = {
+    2: [("  return D <= D_PORTABLE ? ROUTE_SL1 : D <= D_SL2 ? ROUTE_SL2 : ROUTE_SIMT;",
+         "  return D <= D_SL2 ? ROUTE_SL2 : ROUTE_SIMT;")],
+    1: [("SL == 1 ? CL_PORTABLE : CL_NONPORTABLE", "CL_NONPORTABLE")],
+}
 
 
 # Ablations of the streamed-tile kernels at their main-path shapes: text in
@@ -101,6 +137,20 @@ _NO_PRODUCT = [("    for (int k4 = 0; k4 < plan.kfull; k4 += 4) {",
                 "    for (int k4 = 0; k4 < 0; k4 += 4) {")]
 _NO_MERGE = [("      if (!((hit >> i) & 1u)) continue;  // warp-uniform",
               "      sink += hit;\n      if (true) continue;"), *_SINK]
+_L2_STORE = ("        if (c0 + lane + 32 * j < m) __stcs(orow + 32 * j, v);",
+             "        if (v == -1.f) __stcs(orow + 32 * j, v);")
+_L2_ROOT = ("sqrt_rn(fmaxf((sx[i] + sy[j]) - 2.f * acc[i][j], 0.f))",
+            "fmaxf((sx[i] + sy[j]) - 2.f * acc[i][j], 0.f)")
+# every dim reads the operands of dims 0 and 1: loop-invariant loads the
+# compiler hoists, so the loop keeps its FFMAs and loses its shared loads
+_L2_LOADS = [
+    ("          const float4 a = *reinterpret_cast<const float4*>(xs + k * TN + 4 * q);",
+     "          const float4 a = *reinterpret_cast<const float4*>(xs + 4 * q);"),
+    ("          const float4 b = *reinterpret_cast<const float4*>(xs + (k + 1) * TN + 4 * q);",
+     "          const float4 b = *reinterpret_cast<const float4*>(xs + TN + 4 * q);"),
+    ("          cv[j] = *reinterpret_cast<const float2*>(cr + 32 * j * plan.cp + k);",
+     "          cv[j] = *reinterpret_cast<const float2*>(cr + 32 * j * plan.cp);"),
+]
 RING_ABLATIONS = {
     "topk_sim": {
         "no product": _NO_PRODUCT,
@@ -114,6 +164,16 @@ RING_ABLATIONS = {
                       "      if (false) {\n        if (lane == 0) {")],
         "no product": [("    for (int c = 0; c < KC / 4; ++c) {", "    for (int c = 0; c < 0; ++c) {")],
     },
+    "pairwise_l2": {
+        "no product": [("      for (int k = 0; k < plan.kw; k += 2) {",
+                        "      for (int k = 0; k < 0; k += 2) {")],
+        "no stores": [_L2_STORE],
+        "no root": [_L2_ROOT],
+        "no shared loads": _L2_LOADS,
+        "FFMA only (no loads, root or stores)": _L2_LOADS + [_L2_ROOT, _L2_STORE],
+        "15 warps of 4 rows": [("constexpr int WARPS = 11; ", "constexpr int WARPS = 15; "),
+                               ("constexpr int TN = 8; ", "constexpr int TN = 4; ")],
+    },
 }
 
 
@@ -121,18 +181,20 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def load_variant(name: str, src: str, tag: str) -> ctypes.CDLL:
+def load_variant(name: str, src: str, tag: str, include: Path | None = None) -> ctypes.CDLL:
     """nvcc ``src`` (a variant of source ``name``) into its own library,
-    bound with the committed source's C signatures."""
+    bound with the committed source's C signatures; ``include`` is searched
+    for headers before csrc/."""
     from repro_torch.kernels import _build
 
     OUT.mkdir(parents=True, exist_ok=True)
     cu = OUT / f"{name}_{tag}.cu"
     cu.write_text(src)
     lib = OUT / f"lib{name}_{tag}.so"
+    inc = ["-I", str(include)] if include else []
     proc = subprocess.run(
         [_build._nvcc(), *_build.ARCH_FLAGS, "-std=c++17", "-O3", "-shared", "-Xcompiler",
-         "-fPIC", "-Xptxas", "-v", "-I", str(_build.CSRC), "-o", str(lib), str(cu)],
+         "-fPIC", "-Xptxas", "-v", *inc, "-I", str(_build.CSRC), "-o", str(lib), str(cu)],
         capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for variant {tag}:\n{proc.stdout}{proc.stderr}")
@@ -173,10 +235,37 @@ def variants(name: str, ablations: dict) -> dict:
     return runs
 
 
+def clocks_under_load(torch, fn, seconds: float = 4.0) -> list:
+    """nvidia-smi's SM clock, power draw and throttle reasons, sampled twice
+    a second while ``fn`` runs back to back."""
+    import threading
+    import time
+
+    samples = []
+
+    def sample():
+        for _ in range(int(2 * seconds)):
+            proc = subprocess.run(
+                ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,clocks_throttle_reasons.active",
+                 "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+            samples.append(proc.stdout.strip())
+            time.sleep(0.5)
+
+    th = threading.Thread(target=sample)
+    th.start()
+    while th.is_alive():
+        for _ in range(20):
+            fn()
+        torch.cuda.synchronize()
+    th.join()
+    return samples
+
+
 def ablate_ring(torch, cs) -> None:
     import numpy as np
 
-    from repro_torch.kernels import fl_gains as kfl, topk_sim as ktk
+    from repro_torch.core.engines import sparse
+    from repro_torch.kernels import fl_gains as kfl, pairwise_l2 as kpw, topk_sim as ktk
 
     dev = torch.device("cuda")
     feats, y = cs.covtype_pool(dev)
@@ -191,11 +280,17 @@ def ablate_ring(torch, cs) -> None:
     valid = torch.ones(cs.SVC_BUDGET, dtype=torch.bool, device=dev)
     cur0 = torch.zeros(pool.shape[0], device=dev)
     d_max = (2.0 * torch.sqrt(sqx.max()) + 1e-6).reshape(())
+    r0 = cs.COV_BUDGETS[0]
+    s0 = x0[torch.randperm(x0.shape[0], device=dev, generator=gen)[:r0]].contiguous()
+    xb = x0[:sparse.ASSIGN_BLOCK_BYTES // (4 * r0)].contiguous()
+    sqb, sqs = torch.sum(xb * xb, dim=1), torch.sum(s0 * s0, dim=1)
     calls = {
         "topk_sim": (lambda: ktk.topk_sim_cuda(x0, sq0, dm0, cs.COV_K), 3,
                      f"Covtype class 0 ({x0.shape[0]} × {cs.COV_D}, k={cs.COV_K})"),
         "fl_replay": (lambda: kfl.fl_replay_cuda(pool, e, sqx, sqe, valid, d_max, cur0), 10,
                       f"service finalize ({pool.shape[0]} × {cs.SVC_BUDGET} × {cs.SVC_DIM})"),
+        "pairwise_l2": (lambda: kpw.pairwise_l2_cuda(xb, s0, sqb, sqs), 10,
+                        f"main-path block shape ({xb.shape[0]} × {r0} × {cs.COV_D})"),
     }
     for name, ablations in RING_ABLATIONS.items():
         fn, reps, shape = calls[name]
@@ -206,26 +301,56 @@ def ablate_ring(torch, cs) -> None:
         use_library(name, None)
         for tag, t in ms.items():
             log(f"[ablate] {name} at the {shape}, {tag}: {t:.3f} ms")
+    fn = calls["pairwise_l2"][0]
+    log(f"[ablate] pairwise_l2 run back to back, nvidia-smi (SM clock, power, throttle "
+        f"reasons): {clocks_under_load(torch, fn)}")
+
+
+def ce_operands(torch, T, D, V, seed=0):
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    h = torch.randn(T, D, device=dev, generator=gen).bfloat16()
+    w = (0.05 * torch.randn(V, D, device=dev, generator=gen)).bfloat16()
+    y = torch.randint(0, V, (T,), device=dev, generator=gen).int()
+    return h, w, y
 
 
 def ablate(torch, cs) -> None:
     from repro_torch.kernels import ce_proxy as kce
 
-    dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(0)
-    T, D, V = 4096, 2048, 151_936
-    h = torch.randn(T, D, device=dev, generator=gen).bfloat16()
-    w = (0.05 * torch.randn(V, D, device=dev, generator=gen)).bfloat16()
-    y = torch.randint(0, V, (T,), device=dev, generator=gen).int()
+    shapes = [(4096, 2048, 151_936)] + [(4096, D, V) for T, D, V, _ in cs.CE_SHAPES
+                                         if D in cs.CE_WIDE and T == 4096]
     runs = variants("ce_proxy", ABLATIONS)
-    ms = {}
-    for tag, cdll in runs.items():
-        use_library("ce_proxy", cdll)
-        ms[tag] = cs.median_ms(torch, lambda: kce.ce_proxy_cuda(h, w, y, V), 5)
-    use_library("ce_proxy", None)
-    for tag, t in ms.items():
-        log(f"[ablate] ce_proxy bf16 T={T} D={D} V={V}, {tag}: {t:.3f} ms"
-            + ("" if tag == "committed" else f" (part costs {ms['committed'] - t:.3f} ms)"))
+    forced = {r: v for r, v in variants("ce_proxy", {
+        f"route {r} forced": subs for r, subs in ROUTE_FORCES.items()}).items() if v}
+    for T, D, V in shapes:
+        h, w, y = ce_operands(torch, T, D, V)
+        ms = {}
+        for tag, cdll in runs.items():
+            use_library("ce_proxy", cdll)
+            ms[tag] = cs.median_ms(torch, lambda: kce.ce_proxy_cuda(h, w, y, V), 5)
+        use_library("ce_proxy", None)
+        route = cs.ce_route(D)
+        for tag, t in ms.items():
+            log(f"[ablate] ce_proxy bf16 T={T} D={D} V={V} (route {route}), {tag}: {t:.3f} ms"
+                + ("" if tag == "committed" else f" (part costs {ms['committed'] - t:.3f} ms)"))
+        other = 2 if route["route"] == 1 else 1 if D <= 4096 else None
+        if other:  # the other cluster route at this width
+            lib = forced[f"route {other} forced"]
+            want = kce.ce_proxy_cuda(h, w, y, V)
+            use_library("ce_proxy", lib)
+            got = kce.ce_proxy_cuda(h, w, y, V)
+            err = float((got - want).abs().max())
+            tol = cs.ce_tol(w, "bfloat16")
+            if err > tol:
+                raise AssertionError(f"route {other} at D={D}: max |err| {err} > {tol}")
+            t = cs.median_ms(torch, lambda: kce.ce_proxy_cuda(h, w, y, V), 5)
+            use_library("ce_proxy", None)
+            log(f"[ablate] ce_proxy bf16 T={T} D={D} V={V}, route {other} forced "
+                f"({cs.ce_route(D, lib)}): {t:.3f} ms; max |route {other} − route "
+                f"{route['route']}| {err:.3e} (tol {tol:.3e})")
+        del h, w, y
+        torch.cuda.empty_cache()
 
 
 def ce_baseline(torch, cs, path: Path) -> None:
@@ -235,6 +360,8 @@ def ce_baseline(torch, cs, path: Path) -> None:
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     for T, D, V, vv in cs.CE_SHAPES:
+        if D > 2048:  # past the widths of an earlier source
+            continue
         h = torch.randn(T, D, device=dev, generator=gen).bfloat16()
         w = (0.05 * torch.randn(V, D, device=dev, generator=gen)).bfloat16()
         y = torch.randint(0, vv, (T,), device=dev, generator=gen).int()
@@ -369,6 +496,113 @@ def topk_baseline(torch, cs, path: Path) -> None:
     use_library("topk_sim", None)
 
 
+def l2_baseline(torch, cs, path: Path) -> None:
+    import numpy as np
+
+    from repro_torch.core.craig import CraigConfig, CraigSelector
+    from repro_torch.core.engines import sparse
+    from repro_torch.kernels import _build, ops, pairwise_l2 as kpw
+
+    base = load_variant("pairwise_l2", path.read_text(), "baseline", include=path.parent)
+    log_baseline_build(cs, "l2", base, 256)
+    regs, ctas = cs.occupancy(_build.library("pairwise_l2"), "pairwise_l2_occupancy", cs.COV_D)
+    log(f"[l2] committed kernel at d={cs.COV_D}: {regs} registers, {ctas} CTAs/SM")
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    cases = [(f"n={n} m={m} d={d}", torch.randn(n, d, device=dev, generator=gen),
+              torch.randn(m, d, device=dev, generator=gen)) for n, m, d in cs.PAIR_CHECKS]
+    # the Covtype-shaped selection (chip_smoke.py phase 7) for its medoids
+    feats, y = cs.covtype_pool(dev)
+    idx = CraigSelector(CraigConfig(fraction=0.1, per_class=True), device=dev).select(
+        feats, y).indices
+    pools = [np.nonzero(y == c)[0] for c in range(cs.COV_CLASSES)]
+    sels = [np.searchsorted(p, idx[np.isin(idx, p)]) for p in pools]
+    x0 = feats[torch.as_tensor(pools[0], device=dev)].contiguous()
+    s0 = x0[torch.as_tensor(sels[0], device=dev)].contiguous()
+    r0 = s0.shape[0]
+    xb = x0[:sparse.ASSIGN_BLOCK_BYTES // (4 * r0)].contiguous()
+    cases.append((f"main-path block, Covtype class 0: n={xb.shape[0]} m={r0} d={cs.COV_D}",
+                  xb, s0))
+    equal = 0
+    for label, a, b in cases:
+        got = {}
+        for tag, cdll in (("committed", None), ("baseline", base)):
+            use_library("pairwise_l2", cdll)
+            got[tag] = ops.pairwise_l2(a, b, impl="cuda")
+        use_library("pairwise_l2", None)
+        same = torch.equal(got["committed"], got["baseline"])
+        equal += same
+        log(f"[l2] {label}: committed against {path}: bitwise equal {same}, max |Δ| "
+            f"{float((got['committed'] - got['baseline']).abs().max()):.3e}")
+        del got
+    log(f"[l2] bitwise equal at {equal} of {len(cases)} shapes")
+    # every class's exact assignment (hence γ) through both sources
+    same_classes = 0
+    for c, (pool, sel) in enumerate(zip(pools, sels)):
+        xc = feats[torch.as_tensor(pool, device=dev)]
+        got = {}
+        for tag, cdll in (("committed", None), ("baseline", base)):
+            use_library("pairwise_l2", cdll)
+            got[tag] = sparse._blocked_assignment(xc, sel)
+        use_library("pairwise_l2", None)
+        same_classes += all(np.array_equal(u, v) for u, v in zip(got["committed"],
+                                                                 got["baseline"]))
+    log(f"[l2] Covtype-shaped selection: assignment and min distances (hence γ) equal "
+        f"through both sources in {same_classes} of {cs.COV_CLASSES} classes")
+    sqb, sqs = torch.sum(xb * xb, dim=1), torch.sum(s0 * s0, dim=1)
+    for tag, cdll in (("committed", None), ("baseline", base)) * 2:
+        use_library("pairwise_l2", cdll)
+        t = cs.median_ms(torch, lambda: kpw.pairwise_l2_cuda(xb, s0, sqb, sqs), 10)
+        log(f"[l2] main-path block ({xb.shape[0]} × {r0} × {cs.COV_D}), {tag}: {t:.3f} ms")
+    use_library("pairwise_l2", None)
+    t = cs.median_ms(torch, lambda: torch.cdist(xb, s0), 10)
+    log(f"[l2] main-path block, torch.cdist: {t:.3f} ms")
+
+
+def twin_baseline(torch, cs, paths: list) -> None:
+    import importlib.util
+    import time
+
+    from repro_torch.kernels import topk_sim as ktk
+
+    twins = {"committed": ktk.topk_sim_torch}
+    for path in paths:
+        spec = importlib.util.spec_from_file_location(f"twin_{path.stem}", path)
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        twins[str(path)] = mod.topk_sim_torch
+    feats, y = cs.covtype_pool(torch.device("cpu"))
+    x = feats[torch.as_tensor((y == 0).nonzero()[0][:20_000])].contiguous()
+    sq = torch.sum(x * x, dim=1)
+    d_max = 2.0 * torch.sqrt(sq.max()) + 1e-6  # as chip_smoke.py's class-0 graph
+    n, k = x.shape[0], cs.COV_K
+    log(f"[twin] topk_sim twin at n={n} d={x.shape[1]} k={k} on the host CPU "
+        f"({torch.get_num_threads()} threads)")
+    got = {}
+    for _ in range(2):
+        for tag, fn in twins.items():
+            t0 = time.perf_counter()
+            got[tag] = fn(x, sq, d_max, k)
+            log(f"[twin] {tag}: {1e3 * (time.perf_counter() - t0):.1f} ms on the CPU")
+    for tag in twins:
+        if tag != "committed":
+            log(f"[twin] committed against {tag}: vals bitwise equal "
+                f"{torch.equal(got[tag][0], got['committed'][0])}, "
+                f"{int((got[tag][1] != got['committed'][1]).sum())} of {n * k} idx slots "
+                "differ")
+    dev = torch.device("cuda")
+    xc, sqc, dmc = x.to(dev), sq.to(dev), d_max.to(dev)
+    for tag, fn in twins.items():
+        fn(xc, sqc, dmc, k)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        fn(xc, sqc, dmc, k)
+        torch.cuda.synchronize()
+        log(f"[twin] {tag}: peak {torch.cuda.max_memory_allocated() - base} bytes past "
+            f"the inputs (card allocator)")
+
+
 def replay_baseline(torch, cs, path: Path) -> None:
     from repro_torch.kernels import _build, fl_gains as kfl, ops
 
@@ -423,8 +657,10 @@ def main() -> None:
     ap.add_argument("--ablate-ring", action="store_true")
     ap.add_argument("--ce-baseline", type=Path)
     ap.add_argument("--fl-baseline", type=Path)
+    ap.add_argument("--l2-baseline", type=Path)
     ap.add_argument("--topk-baseline", type=Path)
     ap.add_argument("--replay-baseline", type=Path)
+    ap.add_argument("--twin-baseline", type=Path, nargs="+")
     args = ap.parse_args()
     import torch
 
@@ -448,6 +684,10 @@ def main() -> None:
         topk_baseline(torch, cs, args.topk_baseline)
     if args.replay_baseline:
         replay_baseline(torch, cs, args.replay_baseline)
+    if args.l2_baseline:
+        l2_baseline(torch, cs, args.l2_baseline)
+    if args.twin_baseline:
+        twin_baseline(torch, cs, args.twin_baseline)
 
 
 if __name__ == "__main__":

@@ -51,6 +51,8 @@ SIGNATURES: dict[str, dict[str, tuple]] = {
     "ce_proxy": {
         "ce_proxy_f32": (_P,) * 4 + (_I,) * 4 + (_P,),
         "ce_proxy_bf16": (_P,) * 4 + (_I,) * 4 + (_P,),
+        "ce_proxy_bf16_auto_route": (_I,),
+        "ce_proxy_bf16_clusters": (_I, _P, _P),
     },
     "topk_sim": {
         "topk_sim_f32": (_P,) * 5 + (_I,) * 3 + (_P,),
@@ -58,6 +60,7 @@ SIGNATURES: dict[str, dict[str, tuple]] = {
     },
     "pairwise_l2": {
         "pairwise_l2_f32": (_P,) * 5 + (_I,) * 3 + (_P,),
+        "pairwise_l2_occupancy": (_I, _P, _P),
     },
     "fl_replay": {
         "fl_replay_block_rows": (),

@@ -16,8 +16,11 @@ would be empty.
 ``ce_proxy_cuda`` launches the hand-written kernel ``csrc/ce_proxy.cu``
 on PyTorch's current stream, checks device, dtype, shape and contiguity,
 allocates its output with ``torch.empty`` and counts each launch in
-:data:`LAUNCHES`.  ``ce_proxy_torch`` is the same function in plain torch,
-chunked over tokens so the logits are (chunk, V) at a time.
+:data:`LAUNCHES`.  The kernel takes every D: in bf16 it picks its route by
+D (a cluster of up to 8 CTAs × 256 columns to D = 2048, of up to 16 CTAs
+× 512 columns to D = 8,192, a SIMT kernel past that; see the source's
+header).  ``ce_proxy_torch`` is the same function in plain torch, chunked
+over tokens so the logits are (chunk, V) at a time.
 """
 from __future__ import annotations
 
@@ -35,11 +38,6 @@ _ENTRY = {torch.float32: "ce_proxy_f32", torch.bfloat16: "ce_proxy_bf16"}
 
 # Tokens per chunk of the plain twin: (chunk, V) fp32 logits at a time.
 PLAIN_CHUNK = 1024
-
-# Widest D of the bf16 kernel (CL_DMAX in csrc/ce_proxy.cu: a cluster of 8
-# CTAs × 256 columns).
-BF16_D_MAX = 2048
-_WIDE_D_ITEM = 'ROADMAP.md queue 2, "ce_proxy at D > 2048"'
 
 
 def _check(hidden, unembed, labels, valid_v):
@@ -84,13 +82,10 @@ def ce_proxy_cuda(hidden, unembed, labels, valid_v: int) -> torch.Tensor:
     Returns:
       (T, D) fp32 per-token proxies.
     Raises:
-      NotImplementedError: bf16 operands wider than ``BF16_D_MAX``.
+      ValueError: operands the kernel does not take (see ``_check``).
+      RuntimeError: the launch failed, e.g. where the card cannot place
+        the cluster that the bf16 route at this D needs.
     """
-    if hidden.dtype == torch.bfloat16 and hidden.shape[-1] > BF16_D_MAX:
-        raise NotImplementedError(
-            f"the bf16 ce_proxy kernel takes D ≤ {BF16_D_MAX}, got D = "
-            f"{hidden.shape[-1]} ({_WIDE_D_ITEM})"
-        )
     T, D, V = _check(hidden, unembed, labels, valid_v)
     lib = _build.library("ce_proxy")
     out = torch.empty((T, D), dtype=torch.float32, device=hidden.device)

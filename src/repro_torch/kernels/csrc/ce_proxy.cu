@@ -14,17 +14,22 @@
 // dtype before its product and the sum l stays fp32, as the reference
 // computes them.
 //
-// bf16 (the main path), D ≤ 2048: flash-attention's structure with the head
-// dim split over a thread-block cluster.
-//   * Layout.  A cluster of C = ceil(D / 256) CTAs (≤ 8) owns BT = 128
-//     tokens; CTA rank r owns output columns [256r, 256r + 256) and reads
-//     only that column slice of h and W.  Its h slice (128 × 256 bf16,
-//     64 KB) stays in shared memory; W's slice of each vocab block (64 rows ×
-//     256, 32 KB) streams through a 3-stage ring.  Both are filled by TMA
+// bf16 (the main path), three routes by D, all exact in the same sense (fp32
+// logits, statistics and accumulators; p rounded to bf16 for its product).
+// auto_route picks the route; chip_variants.py --ablate builds copies with
+// it patched to force another, for design measurements.
+//
+// Route 1, D ≤ 2048: flash-attention's structure with the head dim split
+// over a thread-block cluster.
+//   * Layout.  A cluster of C = ceil(D / 256) CTAs owns BT = 128 tokens; CTA
+//     rank r owns output columns [256r, 256r + 256) and reads only that
+//     column slice of h and W.  Its h slice (128 × 256 bf16, 64 KB) stays
+//     in shared memory; W's slice of each vocab block (64 rows × 256, 32 KB)
+//     streams through a 3-stage ring.  Both are filled by TMA
 //     (cp.async.bulk.tensor on 2-D tensor maps with 128-byte swizzle, zero
 //     fill out of bounds for ragged T, V and D), signalled by mbarriers.  The
 //     grid is (C, ceil(T / 128)), launched with cudaLaunchKernelEx and the
-//     cluster-dimension attribute.
+//     cluster-dimension attribute.  C ≤ 8: a portable cluster.
 //   * Per vocab block j, in each CTA (two consumer warpgroups, 64 tokens
 //     each):
 //       1. the partial logits S_r = h[:, slice_r] · W_v[:, slice_r]ᵀ (128 × 64
@@ -32,7 +37,7 @@
 //          to this CTA's shared memory;
 //       2. cluster barrier; a reduce-scatter: CTA r finalizes tokens
 //          [r·R, r·R + R), R = ceil(128 / C), loading the C partials from
-//          distributed shared memory (all loads in flight together) and
+//          distributed shared memory (up to 8 loads in flight at once) and
 //          summing them in rank order 0..C−1 (two runs are bit-identical),
 //          updating the online max m and sum l (fp32) and rounding p to
 //          bf16; it all-gathers p (bf16, 128 × 64) and the rescale factor c
@@ -58,22 +63,50 @@
 //     (all 256 threads, then a proxy fence and a named barrier).
 //   * The tensor maps come from cuTensorMapEncodeTiled, reached through
 //     cudaGetDriverEntryPoint(ByVersion): no -lcuda at build time.
-//   Wider D is refused until a ported config needs it (ROADMAP.md queue 2,
-//   "ce_proxy at D > 2048").
 //
-// fp32 (parity runs only, not redesigned): the accumulator in shared memory,
-// at most 2048 columns per CTA (D split over blockIdx.y, logits recomputed
-// per split), 16 tokens per CTA, IEEE fp32 FMAs on the CUDA cores (TF32
-// would break parity with the reference).  It is slower than the plain
-// twin's cuBLAS fp32 GEMMs.
+// Route 2, 2048 < D ≤ 8192: the same kernel with SL = 2 slices a CTA.  The
+// register file caps a CTA's output at 128 tokens × 256 columns (two
+// warpgroups of 64 × 256 fp32), and 16 CTAs is the largest cluster, so a
+// CTA owns two 256-column slices (512 columns) for BT = 64 tokens, and the
+// cluster is C = ceil(D / 512) CTAs: portable to D = 4096 (qwen2-7b: 7,
+// granite-3-8b: 8), non-portable past it (nemotron-4-15b: 12; at most 16)
+// with cudaFuncAttributeNonPortableClusterSizeAllowed.  A non-portable
+// launch first asks cudaOccupancyMaxActiveClusters whether the card can
+// place one such cluster: a size it cannot place is refused
+// (cudaErrorInvalidConfiguration), never handed to another route.  A 9- to
+// 16-CTA cluster must fit in one GPC, so fewer run at once (7 on an H100
+// SXM, against 15 of 8 CTAs; ce_proxy_bf16_clusters reports it and
+// chip_smoke.py logs it).  The two warpgroups split the columns instead of
+// the tokens: warpgroup g accumulates slice g; warpgroup 0 alone computes
+// the 64 × 64 partial logits over all 512 columns (32 k-steps).  h is 64 ×
+// 512 bf16 (64 KB) and a W stage 64 vocab rows × 512 (64 KB, eight
+// 64-column TMA boxes), so the ring has 2 stages (226,328 bytes of shared
+// memory in all).  W passes through L2 twice as often as in route 1:
+// ceil(T / 64) · V · D elements (201 GB at nemotron-4-15b's T = 4,096, D =
+// 6,144, V = 256,000).  Below D = 4096 it beats route 1 widened to 14- or
+// 16-CTA clusters (chip_variants.py --ablate): half the distributed-shared-
+// memory traffic a token, and twice the clusters at once.
+//
+// Route 3, D > 8192 (no configuration of either package reaches it): the
+// SIMT kernel below on bf16 operands, widened exactly to fp32, with p
+// rounded to bf16 for its product.  Simple and right, not fast.
+//
+// fp32 (parity runs only, not redesigned; the SIMT kernel): the accumulator
+// in shared memory, at most 2048 columns per CTA (D split over blockIdx.y,
+// logits recomputed per split), 16 tokens per CTA, IEEE fp32 FMAs on the
+// CUDA cores (TF32 would break parity with the reference).  It is slower
+// than the plain twin's cuBLAS fp32 GEMMs.
 //
 // Bound on this card: operations, 4·T·V·D (5.1 TFLOP at T = 4,096, D = 2048,
-// V = 151,936: 5.2 ms in bf16 at 989 TFLOP/s, 76 ms in fp32 at 67 TFLOP/s).
-// The bf16 kernel does not reach it: each vocab block is a chain of
-// latencies across the cluster (a cluster barrier, the distributed-shared-
-// memory reduce-scatter, a second barrier), 2 · ceil(V / 64) barriers per
-// cluster; the two products run inside the barriers' windows.
-// chip_variants.py --ablate times each part.
+// V = 151,936: 5.2 ms in bf16 at 989 TFLOP/s, 76 ms in fp32 at 67 TFLOP/s;
+// 9.03 ms at qwen2-7b's D = 3,584, V = 152,064; 3.34 ms at granite-3-8b's
+// D = 4,096, V = 49,155; 26.1 ms at nemotron-4-15b's D = 6,144, V =
+// 256,000; the SIMT route does (ceil(D / 2048) + 1)·2·T·V·D on the CUDA
+// cores, at 67 TFLOP/s).  The cluster kernel does not reach it: each vocab
+// block is a chain of latencies across the cluster (a cluster barrier, the
+// distributed-shared-memory reduce-scatter, a second barrier), 2 · ceil(V /
+// 64) barriers per cluster; the two products run inside the barriers'
+// windows.  chip_variants.py --ablate times each part.
 //
 // C entries return cudaGetLastError() after the launch (or the failing
 // runtime or driver status before it).
@@ -99,20 +132,34 @@ constexpr int KP32 = KC32 + 1; // padded row of the fp32 W tile (no bank conflic
 __host__ __device__ inline int round_up(int a, int b) { return (a + b - 1) / b * b; }
 __host__ __device__ inline int imin(int a, int b) { return a < b ? a : b; }
 
-// rows × kc tile of a row-major (n_rows, n_cols) fp32 matrix into dst (row
-// stride ld ≥ kc), zero outside the matrix.
-__device__ inline void load_tile_f32(float* dst, const float* __restrict__ src, int row0,
+// An operand of the SIMT kernel as fp32 (bf16 widens exactly), and p
+// rounded to the compute dtype for its product (the sum l keeps fp32 p).
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(u16 v) { return __uint_as_float((uint32_t)v << 16); }
+template <typename TIn>
+__device__ __forceinline__ float round_p(float v) {
+  if constexpr (sizeof(TIn) == 2) return __bfloat162float(__float2bfloat16(v));
+  return v;
+}
+
+// rows × kc tile of a row-major (n_rows, n_cols) matrix into dst as fp32
+// (row stride ld ≥ kc), zero outside the matrix.
+template <typename TIn>
+__device__ inline void load_tile_f32(float* dst, const TIn* __restrict__ src, int row0,
                                      int n_rows, int col0, int n_cols, int rows, int kc,
                                      int ld) {
   for (int i = threadIdx.x; i < rows * kc; i += THREADS) {
     const int r = i / kc, c = i % kc;
     const int gr = row0 + r, gc = col0 + c;
-    dst[r * ld + c] = (gr < n_rows && gc < n_cols) ? src[(size_t)gr * n_cols + gc] : 0.f;
+    dst[r * ld + c] =
+        (gr < n_rows && gc < n_cols) ? to_f32(src[(size_t)gr * n_cols + gc]) : 0.f;
   }
 }
 
 // Online softmax over one vocab block: each warp takes rows warp, warp+8.
-// Updates m, l; writes the rescale factor c and p = exp(z − m_new).
+// Updates m, l; writes the rescale factor c and p = exp(z − m_new), rounded
+// to the compute dtype TIn (l sums the fp32 p).
+template <typename TIn>
 __device__ inline void softmax_block(const float* z_s, float* p_s, float* m_s, float* l_s,
                                      float* c_s, int v0, int valid_v) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -137,7 +184,7 @@ __device__ inline void softmax_block(const float* z_s, float* p_s, float* m_s, f
     for (int i = 0; i < BV / 32; ++i) {
       const float p = ok[i] ? expf(z[i] - m_new) : 0.f;
       sum += p;
-      p_s[r * BV + lane + 32 * i] = p;
+      p_s[r * BV + lane + 32 * i] = round_p<TIn>(p);
     }
 #pragma unroll
     for (int o = 16; o; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
@@ -176,10 +223,11 @@ size_t smem_f32(int DS) {
   return sizeof(float) * (BT * DS + BV * KP32 + BT * KC32 + 2 * BT * BV + 3 * BT);
 }
 
+template <typename TIn>
 __global__ void __launch_bounds__(THREADS)
-ce_proxy_f32_kernel(const float* __restrict__ h, const float* __restrict__ w,
-                    const int* __restrict__ y, float* __restrict__ out, int T, int D, int V,
-                    int valid_v, int DS) {
+ce_proxy_simt_kernel(const TIn* __restrict__ h, const TIn* __restrict__ w,
+                     const int* __restrict__ y, float* __restrict__ out, int T, int D, int V,
+                     int valid_v, int DS) {
   extern __shared__ __align__(128) unsigned char smem[];
   float* acc_s = reinterpret_cast<float*>(smem);  // BT × DS
   float* w_s = acc_s + BT * DS;                   // BV × KP32
@@ -221,7 +269,7 @@ ce_proxy_f32_kernel(const float* __restrict__ h, const float* __restrict__ w,
     __syncthreads();
 
     // 2. online softmax
-    softmax_block(z_s, p_s, m_s, l_s, c_s, v0, valid_v);
+    softmax_block<TIn>(z_s, p_s, m_s, l_s, c_s, v0, valid_v);
     __syncthreads();
 
     // 3. thread owns column n of the chunk and tokens 4·tg2 .. 4·tg2 + 3;
@@ -246,32 +294,44 @@ ce_proxy_f32_kernel(const float* __restrict__ h, const float* __restrict__ w,
       __syncthreads();
     }
   }
-  epilogue(acc_s, l_s, y, out, t0, T, d0, dn, DS, D, V, [&](size_t i) { return w[i]; });
+  epilogue(acc_s, l_s, y, out, t0, T, d0, dn, DS, D, V,
+           [&](size_t i) { return to_f32(w[i]); });
 }
 
 // ---------------------------------------------------------------------------
-// bf16, D ≤ CL_DMAX: the cluster kernel (see the header).
-constexpr int CL_DMAX = 2048;     // 8 CTAs × 256 columns
-constexpr int CL_DS = 256;        // output columns per CTA
-constexpr int CL_BT = 128;        // tokens per cluster
+// bf16, D ≤ 8192: the cluster kernel (see the header), templated on SL, the
+// 256-column slices a CTA owns.
+constexpr int CL_DS = 256;        // output columns per slice
 constexpr int CL_BV = 64;         // vocab rows per block
-constexpr int CL_STAGES = 3;      // W ring depth
 constexpr int CL_THREADS = 256;   // two consumer warpgroups
 constexpr int CL_PANEL = 64;      // columns per 128-byte swizzle panel
-constexpr int CL_PANELS = CL_DS / CL_PANEL;
 constexpr int CL_SP = CL_BV + 8;  // padded row of the fp32 partial logits
-// Shared-memory layout (bytes from a 1024-aligned base; swizzled tiles need it).
-constexpr int CL_H_PANEL = CL_BT * 128;          // 128 rows × 64 bf16
-constexpr int CL_W_PANEL = CL_BV * 128;          // 64 rows × 64 bf16
-constexpr int CL_W_STAGE = CL_PANELS * CL_W_PANEL;
-constexpr int OFF_H = 0;
-constexpr int OFF_W = OFF_H + CL_PANELS * CL_H_PANEL;
-constexpr int OFF_P = OFF_W + CL_STAGES * CL_W_STAGE;
 constexpr int CL_PP = CL_BV + 8;  // padded row of P (bf16): conflict-free fragment loads
-constexpr int OFF_S = OFF_P + CL_BT * CL_PP * 2;
-constexpr int OFF_STAT = OFF_S + CL_BT * CL_SP * 4;
-constexpr int OFF_BAR = OFF_STAT + 4 * CL_BT * 4;  // corr, l (gathered), m, l (own rows)
-constexpr int CL_SMEM = OFF_BAR + 8 * (CL_STAGES + 1) + 1024;  // + alignment slack
+constexpr int CL_W_PANEL = CL_BV * 128;  // 64 rows × 64 bf16
+constexpr int CL_PORTABLE = 8;    // the largest portable cluster
+constexpr int CL_NONPORTABLE = 16;  // the largest non-portable cluster
+// Shared-memory layout of a route (bytes from a 1024-aligned base; swizzled
+// tiles need it).  SL = 1: 128 tokens × 256 columns a CTA, a 3-stage ring
+// (222,240 bytes); SL = 2: 64 tokens × 512 columns, a 2-stage ring
+// (226,328 bytes).
+template <int SL>
+struct Cl {
+  static constexpr int BT = 128 / SL;             // tokens per cluster
+  static constexpr int STAGES = SL == 1 ? 3 : 2;  // W ring depth
+  static constexpr int CMAX = SL == 1 ? CL_PORTABLE : CL_NONPORTABLE;  // the largest cluster
+  static constexpr int PANELS = SL * CL_DS / CL_PANEL;
+  static constexpr int DS = SL * CL_DS;           // output columns per CTA
+  static constexpr int H_PANEL = BT * 128;        // BT rows × 64 bf16
+  static constexpr int W_STAGE = PANELS * CL_W_PANEL;
+  static constexpr int OFF_H = 0;
+  static constexpr int OFF_W = OFF_H + PANELS * H_PANEL;
+  static constexpr int OFF_P = OFF_W + STAGES * W_STAGE;
+  static constexpr int OFF_S = OFF_P + BT * CL_PP * 2;
+  static constexpr int OFF_STAT = OFF_S + BT * CL_SP * 4;
+  static constexpr int OFF_BAR = OFF_STAT + 4 * BT * 4;  // corr, l (gathered), m, l (own rows)
+  static constexpr int SMEM = OFF_BAR + 8 * (STAGES + 1) + 1024;  // + alignment slack
+};
+static_assert(Cl<1>::SMEM <= 232448 && Cl<2>::SMEM <= 232448, "a route's shared memory");
 
 __device__ __forceinline__ void wgmma_m64n64_kk(float (&d)[32], uint64_t da, uint64_t db, int scale_d) {
   asm volatile(
@@ -436,14 +496,15 @@ __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
          ((uint32_t)__bfloat16_as_ushort(__float2bfloat16(hi)) << 16);
 }
 
-// rows × 256 column slice [col0, col0 + 256) of a row-major (n_rows, D) bf16
+// rows × DS column slice [col0, col0 + DS) of a row-major (n_rows, D) bf16
 // matrix into the swizzled panels at dst, zero outside it: the synchronous
 // route (all consumer threads), followed by a proxy fence so that wgmma sees
 // it.
+template <int DS>
 __device__ inline void stage_sync(uint8_t* dst, const u16* __restrict__ src, int row0,
                                   int n_rows, int col0, int D, int rows) {
-  for (int i = threadIdx.x; i < rows * CL_DS; i += CL_THREADS) {
-    const int r = i / CL_DS, c = i % CL_DS;
+  for (int i = threadIdx.x; i < rows * DS; i += CL_THREADS) {
+    const int r = i / DS, c = i % DS;
     const int gr = row0 + r, gc = col0 + c;
     const u16 v = (gr < n_rows && gc < D) ? src[(size_t)gr * D + gc] : (u16)0;
     *reinterpret_cast<u16*>(dst + sw128_off(r, c, rows)) = v;
@@ -451,20 +512,22 @@ __device__ inline void stage_sync(uint8_t* dst, const u16* __restrict__ src, int
   fence_proxy_async();
 }
 
-// Block `blk` of W's column slice into ring stage `st` (bar: its mbarrier).
+// Block `blk` of W's column slices into ring stage `st` (bar: its mbarrier).
+template <int SL>
 __device__ inline void load_w(uint8_t* base, const CUtensorMap* tm_w, const u16* __restrict__ w,
                               int blk, int st, uint32_t bar, int col0, int D, int V, bool tma) {
-  uint8_t* dst = base + OFF_W + st * CL_W_STAGE;
+  using L = Cl<SL>;
+  uint8_t* dst = base + L::OFF_W + st * L::W_STAGE;
   if (tma) {
     if (threadIdx.x == 0) {
-      mbar_expect_tx(bar, CL_W_STAGE);
+      mbar_expect_tx(bar, L::W_STAGE);
 #pragma unroll
-      for (int p = 0; p < CL_PANELS; ++p)
+      for (int p = 0; p < L::PANELS; ++p)
         tma_load_2d(smem_u32(dst + p * CL_W_PANEL), tm_w, bar, col0 + p * CL_PANEL,
                     blk * CL_BV);
     }
   } else {
-    stage_sync(dst, w, blk * CL_BV, V, col0, D, CL_BV);
+    stage_sync<L::DS>(dst, w, blk * CL_BV, V, col0, D, CL_BV);
     consumers_sync();
     if (threadIdx.x == 0) mbar_arrive(bar);
   }
@@ -472,14 +535,16 @@ __device__ inline void load_w(uint8_t* base, const CUtensorMap* tm_w, const u16*
 }
 
 // Issue this warpgroup's partial logits of one vocab block: 64 tokens ×
-// 64 vocab rows over the CTA's 256 columns (16 k-steps), into sacc.
+// 64 vocab rows over the CTA's DS columns (16·SL k-steps), into sacc.
+template <int SL>
 __device__ __forceinline__ void logits(float (&sacc)[32], uint32_t h_wg, uint32_t w_st) {
+  using L = Cl<SL>;
   wgmma_fence();
 #pragma unroll
-  for (int p = 0; p < CL_PANELS; ++p) {
+  for (int p = 0; p < L::PANELS; ++p) {
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
-      const uint64_t da = sw128_desc(h_wg + p * CL_H_PANEL + 32 * k, 16, 1024);
+      const uint64_t da = sw128_desc(h_wg + p * L::H_PANEL + 32 * k, 16, 1024);
       const uint64_t db = sw128_desc(w_st + p * CL_W_PANEL + 32 * k, 16, 1024);
       wgmma_m64n64_kk(sacc, da, db, (p | k) != 0);
     }
@@ -487,65 +552,73 @@ __device__ __forceinline__ void logits(float (&sacc)[32], uint32_t h_wg, uint32_
   asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
 }
 
+// SL = 1: the two warpgroups split the CTA's 128 tokens, each over the
+// CTA's 256 columns.  SL = 2: both take the CTA's 64 tokens, warpgroup g
+// over slice g (columns 256g .. 256g + 255 of the CTA's 512); warpgroup 0
+// alone computes the partial logits over all 512 columns.
+template <int SL>
 __global__ void __launch_bounds__(CL_THREADS, 1)
 ce_proxy_bf16_cluster_kernel(const __grid_constant__ CUtensorMap tm_h,
                              const __grid_constant__ CUtensorMap tm_w,
                              const u16* __restrict__ h, const u16* __restrict__ w,
                              const int* __restrict__ y, float* __restrict__ out, int T, int D,
                              int V, int valid_v, int use_tma) {
+  using L = Cl<SL>;
+  constexpr int BT = L::BT, STAGES = L::STAGES, CMAX = L::CMAX;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* base = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
-  float* spart = reinterpret_cast<float*>(base + OFF_S);  // CL_BT × CL_SP
-  float* corr_s = reinterpret_cast<float*>(base + OFF_STAT);
-  float* lsum_s = corr_s + CL_BT;  // l of every row, gathered at the end
-  float* m_own = lsum_s + CL_BT;   // online max of the rows this CTA finalizes
-  float* l_own = m_own + CL_BT;    // online sum of the same rows
-  const uint32_t bar0 = smem_u32(base + OFF_BAR);  // W stages, then h
-  const uint32_t hbar = bar0 + 8 * CL_STAGES;
+  float* spart = reinterpret_cast<float*>(base + L::OFF_S);  // BT × CL_SP
+  float* corr_s = reinterpret_cast<float*>(base + L::OFF_STAT);
+  float* lsum_s = corr_s + BT;  // l of every row, gathered at the end
+  float* m_own = lsum_s + BT;   // online max of the rows this CTA finalizes
+  float* l_own = m_own + BT;    // online sum of the same rows
+  const uint32_t bar0 = smem_u32(base + L::OFF_BAR);  // W stages, then h
+  const uint32_t hbar = bar0 + 8 * STAGES;
 
   const bool tma = use_tma != 0;
   const int tid = threadIdx.x;
-  const int wg = tid >> 7;               // consumer warpgroup: tokens 64·wg ..
+  const int wg = tid >> 7;               // consumer warpgroup: tokens 64·wg .. (SL = 1)
   const int wq = (tid >> 5) & 3;         // warp in the warpgroup: 16 rows each
   const int lane = tid & 31;
+  const bool has_logits = SL == 1 || wg == 0;  // this warpgroup computes logits
   const uint32_t rank = cluster_rank();
   const uint32_t C = cluster_size();
-  const int col0 = (int)rank * CL_DS;
-  const int t0 = blockIdx.y * CL_BT;
+  const int col0 = (int)rank * L::DS;
+  const int t0 = blockIdx.y * BT;
   const int nv = (valid_v + CL_BV - 1) / CL_BV;  // blocks past valid_v add nothing
-  const int R = (CL_BT + (int)C - 1) / (int)C;   // rows finalized per CTA
-  const int rlo = imin((int)rank * R, CL_BT);
-  const int nrows = imin(R, CL_BT - rlo);
+  const int R = (BT + (int)C - 1) / (int)C;      // rows finalized per CTA
+  const int rlo = imin((int)rank * R, BT);
+  const int nrows = imin(R, BT - rlo);
 
   if (tid == 0) {
-    for (int s = 0; s < CL_STAGES; ++s) mbar_init(bar0 + 8 * s, 1);
+    for (int s = 0; s < STAGES; ++s) mbar_init(bar0 + 8 * s, 1);
     mbar_init(hbar, 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  if (tid < CL_BT) {
+  if (tid < BT) {
     m_own[tid] = -INFINITY;
     l_own[tid] = 0.f;
   }
   __syncthreads();
 
-  // h slice and the first CL_STAGES blocks of W
+  // h slices and the first STAGES blocks of W
   if (tma) {
     if (tid == 0) {
-      mbar_expect_tx(hbar, CL_PANELS * CL_H_PANEL);
+      mbar_expect_tx(hbar, L::PANELS * L::H_PANEL);
 #pragma unroll
-      for (int p = 0; p < CL_PANELS; ++p)
-        tma_load_2d(smem_u32(base + OFF_H + p * CL_H_PANEL), &tm_h, hbar, col0 + p * CL_PANEL,
-                    t0);
+      for (int p = 0; p < L::PANELS; ++p)
+        tma_load_2d(smem_u32(base + L::OFF_H + p * L::H_PANEL), &tm_h, hbar,
+                    col0 + p * CL_PANEL, t0);
     }
     __syncwarp();
   } else {
-    stage_sync(base + OFF_H, h, t0, T, col0, D, CL_BT);
+    stage_sync<L::DS>(base + L::OFF_H, h, t0, T, col0, D, BT);
     consumers_sync();
     if (tid == 0) mbar_arrive(hbar);
   }
-  for (int b = 0; b < CL_STAGES && b < nv; ++b)
-    load_w(base, &tm_w, w, b, b, bar0 + 8 * b, col0, D, V, tma);
+  for (int b = 0; b < STAGES && b < nv; ++b)
+    load_w<SL>(base, &tm_w, w, b, b, bar0 + 8 * b, col0, D, V, tma);
 
   float acc[128];
 #pragma unroll
@@ -553,16 +626,18 @@ ce_proxy_bf16_cluster_kernel(const __grid_constant__ CUtensorMap tm_h,
   float sacc[32];
 #pragma unroll
   for (int i = 0; i < 32; ++i) sacc[i] = 0.f;
-  // this thread's accumulator rows (within the CTA's 128 tokens)
-  const int row_lo = wg * 64 + wq * 16 + (lane >> 2);
+  // this thread's accumulator rows (within the CTA's BT tokens)
+  const int row_lo = (SL == 1 ? wg * 64 : 0) + wq * 16 + (lane >> 2);
   const int row_hi = row_lo + 8;
-  const uint32_t h_wg = smem_u32(base + OFF_H) + wg * 64 * 128;
-  const u16* p_s = reinterpret_cast<const u16*>(base + OFF_P);  // CL_BT × CL_PP
-  const uint32_t p_cl = smem_u32(base + OFF_P);
-  const uint32_t w0 = smem_u32(base + OFF_W);
+  const uint32_t h_wg = smem_u32(base + L::OFF_H) + (SL == 1 ? wg * 64 * 128 : 0);
+  const u16* p_s = reinterpret_cast<const u16*>(base + L::OFF_P);  // BT × CL_PP
+  const uint32_t p_cl = smem_u32(base + L::OFF_P);
+  const uint32_t w0 = smem_u32(base + L::OFF_W);
+  // the accumulate's B operand: warpgroup g's slice of a W stage (SL = 2)
+  const uint32_t w_wg = SL == 1 ? 0u : (uint32_t)(wg * 4 * CL_W_PANEL);
   mbar_wait(hbar, 0);
   mbar_wait(bar0, 0);
-  logits(sacc, h_wg, w0);
+  if (has_logits) logits<SL>(sacc, h_wg, w0);
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 
   // P (bf16, the A operand of the accumulate) and c of the previous block,
@@ -581,7 +656,7 @@ ce_proxy_bf16_cluster_kernel(const __grid_constant__ CUtensorMap tm_h,
     c_lo = corr_s[row_lo];
     c_hi = corr_s[row_hi];
   };
-  // acc = acc·c + P · W_v over this CTA's 256 columns (W_v in stage `ws`)
+  // acc = acc·c + P · W_v over this warpgroup's 256 columns (W_v in stage `ws`)
   auto accumulate = [&](int ws) {
 #pragma unroll
     for (int i = 0; i < 32; ++i) {
@@ -591,7 +666,7 @@ ce_proxy_bf16_cluster_kernel(const __grid_constant__ CUtensorMap tm_h,
       acc[4 * i + 3] *= c_hi;
     }
     wgmma_fence();
-    const uint32_t w_st = w0 + ws * CL_W_STAGE;
+    const uint32_t w_st = w0 + ws * L::W_STAGE + w_wg;
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
       // MN-major B: 16 vocab rows per k-step; LBO steps a 64-column panel,
@@ -604,24 +679,26 @@ ce_proxy_bf16_cluster_kernel(const __grid_constant__ CUtensorMap tm_h,
 
   for (int j = 0; j < nv; ++j) {
     // 1. this CTA's partial logits of block j (computed in sacc) to spart
+    if (has_logits) {
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int c = 8 * i + 2 * (lane & 3);
-      *reinterpret_cast<float2*>(&spart[row_lo * CL_SP + c]) =
-          make_float2(sacc[4 * i], sacc[4 * i + 1]);
-      *reinterpret_cast<float2*>(&spart[row_hi * CL_SP + c]) =
-          make_float2(sacc[4 * i + 2], sacc[4 * i + 3]);
+      for (int i = 0; i < 8; ++i) {
+        const int c = 8 * i + 2 * (lane & 3);
+        *reinterpret_cast<float2*>(&spart[row_lo * CL_SP + c]) =
+            make_float2(sacc[4 * i], sacc[4 * i + 1]);
+        *reinterpret_cast<float2*>(&spart[row_hi * CL_SP + c]) =
+            make_float2(sacc[4 * i + 2], sacc[4 * i + 3]);
+      }
     }
     if (j >= 1) read_p();
     asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
     // while the partials are gathered: block j − 1's accumulate, then refill
     // its W stage with block j + 2
     if (j >= 1) {
-      const int sb = (j - 1) % CL_STAGES;
+      const int sb = (j - 1) % STAGES;
       accumulate(sb);
-      if (j - 1 + CL_STAGES < nv) {
+      if (j - 1 + STAGES < nv) {
         consumers_sync();  // both warpgroups are done with the stage
-        load_w(base, &tm_w, w, j - 1 + CL_STAGES, sb, bar0 + 8 * sb, col0, D, V, tma);
+        load_w<SL>(base, &tm_w, w, j - 1 + STAGES, sb, bar0 + 8 * sb, col0, D, V, tma);
       }
     }
     asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
@@ -636,15 +713,22 @@ ce_proxy_bf16_cluster_kernel(const __grid_constant__ CUtensorMap tm_h,
         const bool active = rl < nrows;
         const int row = rlo + (active ? rl : 0);
         const uint32_t src = smem_u32(&spart[row * CL_SP + 4 * q]);
-        float4 part[8];  // all loads in flight, then summed in rank order
+        // up to 8 loads in flight, then summed in rank order 0..C−1
+        float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll
-        for (int k = 0; k < 8; ++k)
-          if (k < (int)C) part[k] = ld_cluster_f4(map_rank(src, k));
-        float4 z = part[0];
+        for (int g = 0; g < CMAX; g += CL_PORTABLE) {
+          if (g >= (int)C) break;
+          float4 part[CL_PORTABLE];
 #pragma unroll
-        for (int k = 1; k < 8; ++k) {
-          if (k < (int)C) {
-            z.x += part[k].x; z.y += part[k].y; z.z += part[k].z; z.w += part[k].w;
+          for (int k = 0; k < CL_PORTABLE; ++k)
+            if (g + k < (int)C) part[k] = ld_cluster_f4(map_rank(src, g + k));
+#pragma unroll
+          for (int k = 0; k < CL_PORTABLE; ++k) {
+            if (g + k == 0) {
+              z = part[0];
+            } else if (g + k < (int)C) {
+              z.x += part[k].x; z.y += part[k].y; z.z += part[k].z; z.w += part[k].w;
+            }
           }
         }
         const int v = v0 + 4 * q;
@@ -682,15 +766,15 @@ ce_proxy_bf16_cluster_kernel(const __grid_constant__ CUtensorMap tm_h,
     asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
     // while P and c are gathered: the next block's logits
     if (j + 1 < nv) {
-      const int sn = (j + 1) % CL_STAGES;
-      mbar_wait(bar0 + 8 * sn, ((j + 1) / CL_STAGES) & 1);
-      logits(sacc, h_wg, w0 + sn * CL_W_STAGE);
+      const int sn = (j + 1) % STAGES;
+      mbar_wait(bar0 + 8 * sn, ((j + 1) / STAGES) & 1);
+      if (has_logits) logits<SL>(sacc, h_wg, w0 + sn * L::W_STAGE);
     }
     asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
     asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
   }
   read_p();  // the last block's accumulate
-  accumulate((nv - 1) % CL_STAGES);
+  accumulate((nv - 1) % STAGES);
 
   // gather l, then out = acc / l − W[y] on this CTA's columns
   for (int rl = tid; rl < nrows; rl += CL_THREADS) {
@@ -711,7 +795,7 @@ ce_proxy_bf16_cluster_kernel(const __grid_constant__ CUtensorMap tm_h,
     const float l = lsum_s[row];
 #pragma unroll
     for (int i = 0; i < 32; ++i) {
-      const int col = col0 + 8 * i + 2 * (lane & 3);
+      const int col = col0 + (SL == 1 ? 0 : CL_DS * wg) + 8 * i + 2 * (lane & 3);
       const float a0 = acc[4 * i + 2 * half], a1 = acc[4 * i + 2 * half + 1];
       if (col >= D) continue;
       const float w0 = yok ? __bfloat162float(wbf[(size_t)yy * D + col]) : 0.f;
@@ -768,57 +852,142 @@ bool bf16_map(CUtensorMap* map, const void* ptr, int rows, int D, int box_rows) 
 
 inline bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; }
 
-}  // namespace
+// The bf16 routes, picked by D.
+enum Route { ROUTE_SL1 = 1, ROUTE_SL2 = 2, ROUTE_SIMT = 3 };
+constexpr int D_PORTABLE = Cl<1>::CMAX * Cl<1>::DS;  // 2048: SL = 1, portable clusters
+constexpr int D_SL2 = Cl<2>::CMAX * Cl<2>::DS;       // 8192: SL = 2
+int auto_route(int D) {
+  return D <= D_PORTABLE ? ROUTE_SL1 : D <= D_SL2 ? ROUTE_SL2 : ROUTE_SIMT;
+}
 
-extern "C" {
+template <int SL>
+unsigned cluster_ctas(int D) { return (unsigned)((D + Cl<SL>::DS - 1) / Cl<SL>::DS); }
 
-// h (T, D), w (V, D) bf16; y (T,) int32; out (T, D) fp32; 1 ≤ valid_v ≤ V.
-// D ≤ CL_DMAX (wider D returns cudaErrorInvalidValue; the Python wrapper
-// refuses it first).  A failed tensor-map encode returns
-// cudaErrorInvalidValue too.
-int ce_proxy_bf16(const void* h, const void* w, const void* y, void* out, int T, int D,
-                  int V, int valid_v, void* stream) {
-  if (D > CL_DMAX) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(ce_proxy_bf16_cluster_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, CL_SMEM);
-  if (err != cudaSuccess) return (int)err;
-  const int tma = (D % 8 == 0) && aligned16(h) && aligned16(w);
-  CUtensorMap tm_h, tm_w;
-  memset(&tm_h, 0, sizeof(tm_h));
-  memset(&tm_w, 0, sizeof(tm_w));
-  if (tma && !(bf16_map(&tm_h, h, T, D, CL_BT) && bf16_map(&tm_w, w, V, D, CL_BV)))
-    return (int)cudaErrorInvalidValue;
-  const unsigned C = (unsigned)((D + CL_DS - 1) / CL_DS);
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(C, (unsigned)((T + CL_BT - 1) / CL_BT), 1);
+// Sets the cluster kernel's attributes and fills its launch configuration.
+template <int SL>
+cudaError_t configure(cudaLaunchConfig_t& cfg, cudaLaunchAttribute* attr, int T, int D,
+                      void* stream) {
+  cudaError_t err = cudaFuncSetAttribute(ce_proxy_bf16_cluster_kernel<SL>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         Cl<SL>::SMEM);
+  if (err == cudaSuccess && Cl<SL>::CMAX > CL_PORTABLE)
+    err = cudaFuncSetAttribute(ce_proxy_bf16_cluster_kernel<SL>,
+                               cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  const unsigned C = cluster_ctas<SL>(D);
+  cfg = {};
+  cfg.gridDim = dim3(C, (unsigned)((T + Cl<SL>::BT - 1) / Cl<SL>::BT), 1);
   cfg.blockDim = dim3(CL_THREADS, 1, 1);
-  cfg.dynamicSmemBytes = CL_SMEM;
+  cfg.dynamicSmemBytes = Cl<SL>::SMEM;
   cfg.stream = (cudaStream_t)stream;
-  cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
   attr[0].val.clusterDim.x = C;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, ce_proxy_bf16_cluster_kernel, tm_h, tm_w, (const u16*)h,
-                           (const u16*)w, (const int*)y, (float*)out, T, D, V, valid_v, tma);
+  return err;
+}
+
+// Clusters of route SL at D that the card holds at once (0: it cannot place one).
+template <int SL>
+cudaError_t max_clusters(int D, int* clusters) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  cudaError_t err = configure<SL>(cfg, attr, Cl<SL>::BT, D, nullptr);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveClusters(clusters, ce_proxy_bf16_cluster_kernel<SL>, &cfg);
+  return err;
+}
+
+template <int SL>
+int launch_cluster(const void* h, const void* w, const void* y, void* out, int T, int D, int V,
+                   int valid_v, void* stream) {
+  const unsigned C = cluster_ctas<SL>(D);
+  if (C > (unsigned)Cl<SL>::CMAX) return (int)cudaErrorInvalidValue;
+  if (Cl<SL>::CMAX > CL_PORTABLE) {
+    // a non-portable cluster: refuse, with no other route, where the card
+    // cannot place one (checked once per size)
+    static bool placed[CL_NONPORTABLE + 1] = {};
+    if (!placed[C]) {
+      int n = 0;
+      const cudaError_t err = max_clusters<SL>(D, &n);
+      if (err != cudaSuccess) return (int)err;
+      if (n < 1) return (int)cudaErrorInvalidConfiguration;
+      placed[C] = true;
+    }
+  }
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  cudaError_t err = configure<SL>(cfg, attr, T, D, stream);
+  if (err != cudaSuccess) return (int)err;
+  const int tma = (D % 8 == 0) && aligned16(h) && aligned16(w);
+  CUtensorMap tm_h, tm_w;
+  memset(&tm_h, 0, sizeof(tm_h));
+  memset(&tm_w, 0, sizeof(tm_w));
+  if (tma && !(bf16_map(&tm_h, h, T, D, Cl<SL>::BT) && bf16_map(&tm_w, w, V, D, CL_BV)))
+    return (int)cudaErrorInvalidValue;
+  err = cudaLaunchKernelEx(&cfg, ce_proxy_bf16_cluster_kernel<SL>, tm_h, tm_w,
+                           (const u16*)h, (const u16*)w, (const int*)y, (float*)out, T, D, V,
+                           valid_v, tma);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
-// The same with fp32 h and w.
-int ce_proxy_f32(const void* h, const void* w, const void* y, void* out, int T, int D,
-                 int V, int valid_v, void* stream) {
+template <typename TIn>
+int launch_simt(const void* h, const void* w, const void* y, void* out, int T, int D, int V,
+                int valid_v, void* stream) {
   const int DS = imin(round_up(D, KC32), DS_MAX);
   const size_t smem = smem_f32(DS);
   cudaError_t err = cudaFuncSetAttribute(
-      ce_proxy_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      ce_proxy_simt_kernel<TIn>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((T + BT - 1) / BT, (D + DS - 1) / DS);
-  ce_proxy_f32_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
-      (const float*)h, (const float*)w, (const int*)y, (float*)out, T, D, V, valid_v, DS);
+  ce_proxy_simt_kernel<TIn><<<grid, THREADS, smem, (cudaStream_t)stream>>>(
+      (const TIn*)h, (const TIn*)w, (const int*)y, (float*)out, T, D, V, valid_v, DS);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// h (T, D), w (V, D) bf16; y (T,) int32; out (T, D) fp32; 1 ≤ valid_v ≤ V;
+// any D ≥ 1, on the route auto_route picks (see the header).  Returns
+// cudaErrorInvalidValue for a failed tensor-map encode, and
+// cudaErrorInvalidConfiguration where the card cannot place a cluster of
+// the route's size.
+int ce_proxy_bf16(const void* h, const void* w, const void* y, void* out, int T, int D,
+                  int V, int valid_v, void* stream) {
+  switch (auto_route(D)) {
+    case ROUTE_SL1: return launch_cluster<1>(h, w, y, out, T, D, V, valid_v, stream);
+    case ROUTE_SL2: return launch_cluster<2>(h, w, y, out, T, D, V, valid_v, stream);
+    default: return launch_simt<u16>(h, w, y, out, T, D, V, valid_v, stream);
+  }
+}
+
+// The route ce_proxy_bf16 takes at D (1, 2 or 3, as above).
+int ce_proxy_bf16_auto_route(int D) { return auto_route(D); }
+
+// CTAs per cluster and clusters the card holds at once for the route
+// ce_proxy_bf16 takes at D; both 0 for the SIMT route.
+int ce_proxy_bf16_clusters(int D, int* ctas, int* clusters) {
+  *ctas = 0;
+  *clusters = 0;
+  switch (auto_route(D)) {
+    case ROUTE_SL1:
+      *ctas = (int)cluster_ctas<1>(D);
+      return (int)max_clusters<1>(D, clusters);
+    case ROUTE_SL2:
+      *ctas = (int)cluster_ctas<2>(D);
+      return (int)max_clusters<2>(D, clusters);
+    default: return 0;
+  }
+}
+
+// The same with fp32 h and w (the SIMT kernel, any D).
+int ce_proxy_f32(const void* h, const void* w, const void* y, void* out, int T, int D,
+                 int V, int valid_v, void* stream) {
+  return launch_simt<float>(h, w, y, out, T, D, V, valid_v, stream);
 }
 
 }  // extern "C"

@@ -18,9 +18,6 @@ __all__ = ["pairwise_l2_cuda", "pairwise_l2_torch"]
 
 LAUNCHES = _build.LAUNCHES
 
-# The grid's second axis counts 64-row blocks (CUDA caps it at 65,535).
-_MAX_ROWS = 65_535 * 64
-
 
 def pairwise_l2_cuda(x, y, sqx, sqy) -> torch.Tensor:
     """Launch the kernel: out[i, j] = sqrt(max((sqx_i + sqy_j) − 2·x_i·y_j, 0)).
@@ -40,7 +37,7 @@ def pairwise_l2_cuda(x, y, sqx, sqy) -> torch.Tensor:
     m = y.shape[0]
     if min(n, m, d) < 1:
         raise ValueError(f"empty operand: n={n}, m={m}, d={d}")
-    if n > _MAX_ROWS or max(n * d, m * d) >= 2**31:
+    if max(n * d, m * d) >= 2**31:
         raise ValueError(f"operands too large for the kernel: n={n}, m={m}, d={d}")
     dev = x.device
     _require(x, "x", torch.float32, (n, d), dev)

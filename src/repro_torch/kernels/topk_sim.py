@@ -4,8 +4,8 @@ Port of ``repro.kernels.topk_sim`` (``topk_sim_pallas``).  The TPU kernel
 becomes ``csrc/topk_sim.cu``, bound through :mod:`._build`; beside it sits
 the plain version, the reference's jnp ``topk_graph`` scan
 (``repro/core/engines/sparse.py:78-105``): blocked columns merged into a
-running per-row top-k with ``torch.topk``.  :mod:`repro_torch.kernels.ops`
-chooses.
+running per-row top-k, ties to the lower column.
+:mod:`repro_torch.kernels.ops` chooses.
 """
 from __future__ import annotations
 
@@ -58,11 +58,14 @@ def topk_sim_cuda(x, sq, d_max, k: int):
 
 def topk_sim_torch(x, sq, d_max, k: int, *, block_m: int = 2048):
     """Plain twin of :func:`topk_sim_cuda`: (n × block_m) similarity tiles
-    in column order, each merged into the running top-k with ``torch.topk``
-    on [carry | tile] — the carry holds lower columns, as in the
-    reference's merge.  The k results are put in (value desc, column asc)
-    order; which of several exactly equal values at the k-th place is kept
-    is ``torch.topk``'s choice (``lax.top_k`` keeps the lower column)."""
+    in column order, each merged into the running top-k of [carry | tile]
+    in (value desc, column asc) order.  The carry holds lower columns in
+    that order and the tile's columns ascend, so a stable descending sort
+    of [carry | tile] keeps, among equal values, the lower column, at the
+    k-th place too: the rule of ``lax.top_k`` and of the kernel.  That sort
+    runs only on the rows whose k-th and (k+1)-th values tie; on the others
+    the k largest are one set, taken by ``torch.topk`` and put in that
+    order."""
     n = x.shape[0]
     x = x.float()
     vals = torch.full((n, k), -1e30, dtype=torch.float32, device=x.device)
@@ -74,11 +77,16 @@ def topk_sim_torch(x, sq, d_max, k: int, *, block_m: int = 2048):
         cols = torch.arange(lo, hi, device=x.device).expand(n, hi - lo)
         cat_v = torch.cat([vals, sim], dim=1)
         cat_i = torch.cat([idx, cols], dim=1)
-        vals, pos = torch.topk(cat_v, k, dim=1)
-        idx = torch.gather(cat_i, 1, pos)
+        top_v, pos = torch.topk(cat_v, k + 1, dim=1)
+        tie = (top_v[:, k - 1] == top_v[:, k]).nonzero().squeeze(1)
+        vals, idx = top_v[:, :k], torch.gather(cat_i, 1, pos[:, :k])
         # (value desc, column asc): sort by column, then stably by value
         order = torch.argsort(idx, dim=1)
         vals, idx = torch.gather(vals, 1, order), torch.gather(idx, 1, order)
         order = torch.sort(vals, dim=1, descending=True, stable=True).indices
         vals, idx = torch.gather(vals, 1, order), torch.gather(idx, 1, order)
+        if tie.numel():  # an exact tie at the k-th place
+            tv, ti = cat_v[tie], cat_i[tie]
+            p = torch.sort(tv, dim=1, descending=True, stable=True).indices[:, :k]
+            vals[tie], idx[tie] = torch.gather(tv, 1, p), torch.gather(ti, 1, p)
     return vals, idx.to(torch.int32)

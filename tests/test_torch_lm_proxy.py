@@ -51,6 +51,11 @@ SHAPES = [  # (T, D, V, valid_v)
     (1, 2048, 4099, 4097),     # one token, the widest D
     (129, 2040, 4099, 4097),   # D not a multiple of 256, ragged T and V
     (37, 250, 3001, 2999),     # D % 8 != 0: the staged route
+    # past the 2048 columns of an 8-CTA cluster (the kernel's second route,
+    # 512 columns a CTA): 2,304 and qwen2-7b's 3,584, with ragged T, V and
+    # valid_v
+    (9, 2304, 130, 129),
+    (5, 3584, 300, 297),
 ]
 EPS32 = float(np.finfo(np.float32).eps)
 DTYPES = {"fp32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bfloat16)}
@@ -123,14 +128,19 @@ def test_ce_proxy_rejects_bad_arguments():
 
 
 def test_bf16_kernel_refuses_d_past_its_width():
+    """The name is kept from when the bf16 kernel refused D > 2048; the test
+    now holds that no width limit exists.  The kernel has a route for every
+    D: at qwen2-7b's D = 3,584 it refuses CPU tensors only (the "takes CUDA
+    tensors" ValueError, never a width limit), before any launch."""
     from repro_torch.kernels import ce_proxy as kce
 
-    D = kce.BF16_D_MAX + 1
+    D = 3584
     h, w = torch.zeros(2, D, dtype=torch.bfloat16), torch.zeros(4, D, dtype=torch.bfloat16)
     y = torch.zeros(2, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    before = ops.LAUNCHES["ce_proxy"]
+    with pytest.raises(ValueError, match="takes CUDA tensors"):
         kce.ce_proxy_cuda(h, w, y, 4)
-    assert ops.LAUNCHES["ce_proxy"] == 0
+    assert ops.LAUNCHES["ce_proxy"] == before
     # the plain twin takes any width
     g = ops.ce_proxy(h, w, y, compute_dtype=torch.bfloat16)
     assert g.shape == (2, D) and bool(torch.isfinite(g).all())

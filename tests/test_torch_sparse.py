@@ -134,6 +134,24 @@ def test_topk_sim_keeps_the_lower_column_on_exact_ties():
     np.testing.assert_array_equal(gi.numpy()[0, :3], [0, 3, 5])
 
 
+@pytest.mark.parametrize("dups,k,block_m", [
+    ((0, 3, 5), 2, 2), ((0, 3, 5, 6, 9, 11), 3, 16), ((0, 3, 5, 6, 9, 11), 4, 64),
+    ((2, 5, 7, 11, 13), 3, 4),
+])
+def test_topk_sim_twin_keeps_the_lower_column_at_the_kth_place(dups, k, block_m):
+    # more copies of one point than k: the tie falls on the k-th place of
+    # each copy's row, where lax.top_k keeps the lowest columns
+    x = np.random.default_rng(1).normal(size=(16, 3)).astype(np.float32)
+    x[list(dups)] = x[dups[0]]
+    d_max = _d_max(x)
+    gv, gi = ops.topk_sim(torch.as_tensor(x), k, float(d_max), block_m=block_m)
+    for wv, wi in (jref.topk_sim_ref(jnp.asarray(x), k, d_max),
+                   JS.topk_graph(jnp.asarray(x), k, d_max=d_max, impl="jax")):
+        np.testing.assert_array_equal(gi.numpy(), np.asarray(wi))
+        np.testing.assert_allclose(gv.numpy(), np.asarray(wv), rtol=1e-5, atol=_tau(x))
+    np.testing.assert_array_equal(gi.numpy()[list(dups)], np.tile(dups[:k], (len(dups), 1)))
+
+
 @pytest.mark.parametrize("n,m,d,self_pairs", [
     (37, 5, 3, False), (130, 129, 22, True), (300, 77, 33, False),
 ])
