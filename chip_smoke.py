@@ -13,11 +13,12 @@ version:
      against their plain versions at ragged shapes and at both main-path
      pool sizes, then timed with CUDA events at the main-path shape beside
      their plain versions and bounds; ``ce_proxy`` (bf16 and fp32) against
-     its plain version at T = 4,096, D = 2048, V = 151,936, at the widths of
-     qwen2-7b, granite-3-8b and nemotron-4-15b (D 3,584 to 6,144) and at
-     ragged shapes up to D = 8,200, then timed the same way, the three wide
-     widths beside the einsum head (``core.proxy.lm_unembed_input_proxy``)
-     with each bf16 route's cluster size and clusters in flight;
+     its plain version at T = 4,096, D = 2048, V = 151,936, at the (D,
+     padded V) of the five configs of phase 9 (D 2,048 to 6,144) and at
+     ragged shapes up to D = 8,200, then timed the same way, the five
+     configs' shapes and the SIMT route's beside the einsum head
+     (``core.proxy.lm_unembed_input_proxy``) with each bf16 route's cluster
+     size and clusters in flight;
   3. select: per-class CRAIG (fraction 0.1, engine='auto') on an
      Ijcnn1-shaped pool (49,990 × 22, two classes of 33,216 and 16,774) —
      the ``device`` engine, one ``fl_gains_argmax`` launch per greedy round —
@@ -52,7 +53,17 @@ version:
      service's shape (with its issue bound, registers, CTAs per SM and
      the cuBLAS product of its shape); a ``launch/serve.py --coreset
      --device cuda`` round trip in a subprocess;
-  9. the report: one JSON line per the six kernels, then the last line,
+  9. LM coreset training at the published widths, slice 7's path: five
+     more registered configs — qwen2-7b, granite-3-8b, nemotron-4-15b and
+     the MoE configs moonshot-v1-16b-a3b and dbrx-132b — at full width with
+     depth cut to fit the card (WIDE_LM), seeded on the card; per config
+     the fused proxies held to the einsum proxies and both heads timed,
+     then ``Trainer.run`` through two refreshes and one install (dbrx-132b:
+     one refresh through ``ProxyExtractor`` and ``CraigSelector``, forward
+     only), every refresh launching ``ce_proxy`` at the config's (D,
+     padded V); then a ``launch/train.py --smoke --device cuda``
+     subprocess;
+ 10. the report: one JSON line per the six kernels, then the last line,
      {"ok": true, "device": {...}}.
 
 Before phases 2–8, ``kernels`` compares ``topk_sim`` (both list routes:
@@ -111,12 +122,17 @@ CE_SHAPES = (  # (T, D, V, valid_v): main-path shape, then ragged ones
     (1, 2048, 4099, 4097),
     (129, 2040, 4099, 4097),
     (37, 250, 3001, 2999),
-    # the dense configurations past 2048 columns at their published (D, V),
-    # T = 4,096 (an 8 × 512 batch): route 2 (512 columns a CTA) in 7- and
-    # 8-CTA clusters, and in a non-portable 12-CTA cluster
+    # the configurations of phase 9 at their published (D, padded V), T =
+    # 4,096 (an 8 × 512 batch): route 2 (512 columns a CTA) in 7- and
+    # 8-CTA clusters, and in non-portable 12-CTA clusters; granite-3-8b
+    # unpadded and padded (a ragged last valid vocab block); moonshot's V =
+    # 163,840 on route 1
     (4096, 3584, 152_064, 152_064),
     (4096, 4096, 49_155, 49_155),
+    (4096, 4096, 49_280, 49_155),
     (4096, 6144, 256_000, 256_000),
+    (4096, 2048, 163_840, 163_840),
+    (4096, 6144, 100_352, 100_352),
     # ragged wide shapes: route 2 just past 2,048 and just past 4,096
     # columns (a non-portable 9-CTA cluster); route 2 with D % 8 != 0 (the
     # staged route); the SIMT route past 8,192
@@ -125,13 +141,37 @@ CE_SHAPES = (  # (T, D, V, valid_v): main-path shape, then ragged ones
     (5, 6150, 1000, 997),
     (64, 8200, 4099, 4097),
 )
-# The wide widths timed beside the einsum head, by config.
-CE_WIDE = {3584: "qwen2-7b", 4096: "granite-3-8b", 6144: "nemotron-4-15b"}
+# Phase 9's configs: (D, padded V, valid V) of ``ce_proxy`` on their path,
+# each timed beside the einsum head in phase 2.
+CE_WIDE = {"qwen2-7b": (3584, 152_064, 152_064), "granite-3-8b": (4096, 49_280, 49_155),
+           "nemotron-4-15b": (6144, 256_000, 256_000),
+           "moonshot-v1-16b-a3b": (2048, 163_840, 163_840),
+           "dbrx-132b": (6144, 100_352, 100_352)}
 CE_TIMED = {"bfloat16": 5, "float32": 3}  # CUDA-event-timed launches
 PROXY_TIMED = 5  # CUDA-event-timed calls of each proxy path at full width
 # Device memory still allocated after a trainer is deleted; its parameters
 # alone are 8.1 GB.
 FREED_GB = 4.0
+# Phase 9: depth of each config (layers kept of the published count) and
+# whether it trains.  16 bytes a parameter (fp32 weights, gradients, both
+# AdamW moments) plus ~6 GB of activations fit one 80 GB card: qwen2-7b 8
+# of 28 layers (2.95 B parameters), granite-3-8b 8 of 40 (2.00 B),
+# nemotron-4-15b 2 of 32 (3.93 B, its 3.1 B of vocabulary tables
+# dominate), moonshot-v1-16b-a3b 4 of 48 (3.02 B, C = 64).  dbrx-132b keeps
+# 2 of 40 layers (7.75 B, 31.0 GB in fp32) and runs forward only: one of
+# its layers with AdamW alone needs 71.9 GB.
+WIDE_LM = {"qwen2-7b": (8, True), "granite-3-8b": (8, True), "nemotron-4-15b": (2, True),
+           "moonshot-v1-16b-a3b": (4, True), "dbrx-132b": (2, False)}
+# A pool of 64 docs, 8 batches of 8 × 512 tokens a refresh: epoch 0 is 8
+# full-data steps (v1 selected at step 0); step 9 installs v1 and selects
+# v2.  Two refreshes, one install.
+WIDE_DOCS, WIDE_STEPS = 64, 9
+# AdamW peak learning rate of phase 9, reached after 2 steps: of the rates
+# ``chip_variants.py --lr-probe`` tries on these seeded models, the one
+# whose least fall of the step loss over the configs is widest; at 1e-4
+# and 3e-4 the losses swing by nats from batch to batch and some runs end
+# above their first loss.
+WIDE_LR = 3e-5
 
 # Slice 3, path 1: the Covtype-shaped pool (paper §5.1's Covtype is
 # 581,012 × 54 in seven classes; the real file is not in the repository).
@@ -337,10 +377,10 @@ def ce_bound(T: int, D: int, V: int, es: int, peak: float, mem_bw: float) -> dic
 
 
 def time_wide_ce(torch, kce, h, w, y, vv, bf16_peak, mem_bw) -> dict:
-    """The bf16 kernel at a wide width beside the einsum head (the library
-    path, ``core.proxy.lm_unembed_input_proxy``, on the same tokens as one
-    8 × 512 batch) and the plain twin, with the bound 4·T·V·D over the
-    bf16 peak (or the bytes, if larger)."""
+    """The bf16 kernel beside the einsum head (the library path,
+    ``core.proxy.lm_unembed_input_proxy``, on the same tokens as one batch
+    of LM_BATCH sequences) and the plain twin, with the bound 4·T·V·D over
+    the bf16 peak (or the bytes, if larger)."""
     from repro_torch.core.proxy import lm_unembed_input_proxy
 
     T, D = h.shape
@@ -360,8 +400,8 @@ def time_wide_ce(torch, kce, h, w, y, vv, bf16_peak, mem_bw) -> dict:
 def check_ce_proxy(torch, ops, kce, dev, gen, peaks, card) -> dict:
     """``ce_proxy`` kernel against its plain version in both dtypes at every
     shape of CE_SHAPES (labels include the last valid column), then CUDA-event
-    times at the main-path shape, at the wide widths of CE_WIDE (beside the
-    einsum head) and at one width of the SIMT route.  Returns the report
+    times at the main-path shape, and beside the einsum head at the shapes
+    of CE_WIDE and at one shape of the SIMT route.  Returns the report
     entry (bf16, the main path's dtype) and logs the other figures."""
     fp32_peak, bf16_peak, mem_bw = peaks
     max_err = {"bfloat16": 0.0, "float32": 0.0}
@@ -390,18 +430,17 @@ def check_ce_proxy(torch, ops, kce, dev, gen, peaks, card) -> dict:
             max_err[dname] = max(max_err[dname], err)
             log(f"[2] ce_proxy {dname} T={T} D={D} V={V} valid_v={vv}: max |err| "
                 f"{err:.3e} (tol {tol:.3e})")
-        if D in CE_WIDE and T == 4096:
-            r = time_wide_ce(torch, kce, h, w, y, vv, bf16_peak, mem_bw)
-            log(f"[2] ce_proxy bf16 at {CE_WIDE[D]}'s width (T={T}, D={D}, V={V}): kernel "
-                f"{r['ms']:.3f} ms, einsum head {r['einsum_head_ms']:.3f} ms, plain twin "
-                f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms ({r['bound_by']}); "
-                f"route {r['route']}, {r['cluster_ctas']} CTAs a cluster, "
-                f"{r['clusters_at_once']} clusters at once; {card}")
+        names = [n for n, shape in CE_WIDE.items() if shape == (D, V, vv) and T == 4096]
         if ce_route(D)["route"] == 3:  # the SIMT route, timed at its one shape
-            hb, wb, yb = h.bfloat16(), w.bfloat16(), y.to(torch.int32)
-            t_simt = median_ms(torch, lambda: kce.ce_proxy_cuda(hb, wb, yb, vv), 3, warm=1)
-            log(f"[2] ce_proxy bf16 SIMT route at T={T}, D={D}, V={V}: {t_simt:.3f} ms, "
-                f"{ce_bound(T, D, V, 2, bf16_peak, mem_bw)} (not optimised); {card}")
+            names = ["the SIMT route (not optimised)"]
+        if names:
+            r = time_wide_ce(torch, kce, h, w, y, vv, bf16_peak, mem_bw)
+            log(f"[2] ce_proxy bf16 at {' and '.join(names)} (T={T}, D={D}, V={V}, "
+                f"valid_v={vv}): kernel {r['ms']:.3f} ms, einsum head "
+                f"{r['einsum_head_ms']:.3f} ms, plain twin {r['plain_ms']:.3f} ms, bound "
+                f"{r['bound_ms']:.3f} ms ({r['bound_by']}); route {r['route']}, "
+                f"{r['cluster_ctas']} CTAs a cluster, {r['clusters_at_once']} clusters at "
+                f"once; {card}")
         if (T, D, V, vv) != CE_SHAPES[0]:
             continue
         for dname, reps in CE_TIMED.items():
@@ -419,98 +458,145 @@ def check_ce_proxy(torch, ops, kce, dev, gen, peaks, card) -> dict:
             "fp32": {**timed["float32"], "max_abs_err": max_err["float32"]}}
 
 
-def full_width_proxy_check(torch, ops, card, dev) -> None:
-    """qwen3-1.7b at full width, seeded on the card: the fused proxy (the
-    ``ce_proxy`` kernel, bf16) against the einsum path on one 8 × 512 batch.
-    Tolerance 2⁻⁵·max|W|: the einsum path also rounds its logits and its
-    (p − y) to bf16 where the kernel keeps fp32 (a few bf16 ulps of a
-    convex combination of W rows).  Then both paths are timed per batch,
-    whole (forward included) and head alone (on the same hidden states)."""
-    import numpy as np
+def hold_fused_proxies(torch, cfg, params, batch) -> dict:
+    """The fused proxies (the ``ce_proxy`` kernel, bf16) against the einsum
+    path on one batch.  Tolerance 2⁻⁵·max|W|: the einsum path also rounds
+    its logits and its (p − y) to bf16 where the kernel keeps fp32 (a few
+    bf16 ulps of a convex combination of W rows)."""
+    from repro_torch.models import proxy_features, proxy_features_fused, unembed_matrix
 
-    from repro_torch.configs import get_config
-    from repro_torch.core.proxy import lm_unembed_input_proxy
-    from repro_torch.data import TokenStream, to_device
-    from repro_torch.models import (COMPUTE_DTYPE, forward, init_params, proxy_features,
-                                    proxy_features_fused, unembed_matrix)
-
-    cfg = get_config(LM_ARCH)
-    t0 = time.perf_counter()
-    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0))
-    torch.cuda.synchronize()
-    n_params = sum(p.numel() for p in params.values())
-    # param_count() counts the real vocabulary; the tables hold padded rows
-    expected = cfg.param_count() + 2 * (cfg.padded_vocab - cfg.vocab_size) * cfg.d_model
-    if n_params != expected:
-        raise AssertionError(f"{n_params} parameters, config says {expected}")
-    ds = TokenStream(n_docs=LM_DOCS, seq_len=LM_SEQ, vocab_size=cfg.vocab_size)
-    batch = to_device(ds.batch(np.arange(LM_BATCH)), dev)
     fused = proxy_features_fused(params, cfg, batch)
     einsum = proxy_features(params, cfg, batch)
     torch.cuda.synchronize()
+    B = batch["tokens"].shape[0]
+    if fused.shape != (B, cfg.d_model) or not bool(torch.isfinite(fused).all()):
+        raise AssertionError(f"{cfg.name} fused proxies: shape {tuple(fused.shape)} or "
+                             "non-finite")
     err = float((fused - einsum).abs().max())
-    tol = 2.0**-5 * float(params["unembed"].abs().max())
-    if fused.shape != (LM_BATCH, cfg.d_model) or not bool(torch.isfinite(fused).all()):
-        raise AssertionError(f"fused proxies: shape {tuple(fused.shape)} or non-finite")
+    tol = 2.0**-5 * float(unembed_matrix(params).abs().max())
     if err > tol:
-        raise AssertionError(f"fused against einsum proxies: max |err| {err} > {tol}")
-    log(f"[5] {LM_ARCH} ({n_params:,} params, seeded on the card): fused proxies "
-        f"{tuple(fused.shape)} against einsum, max |err| {err:.3e} (tol {tol:.3e}, "
-        f"max|g| {float(einsum.abs().max()):.3e}); {time.perf_counter() - t0:.1f}s; {card}")
+        raise AssertionError(f"{cfg.name} fused against einsum proxies: max |err| {err} > {tol}")
+    return {"err": err, "tol": tol, "max_g": float(einsum.abs().max())}
+
+
+def proxy_ms(torch, ops, cfg, params, batch, whole: bool) -> dict:
+    """Median ms of PROXY_TIMED calls per batch: the ``ce_proxy`` kernel
+    head and the einsum head on the same hidden states, and with ``whole``
+    both proxy paths forward included."""
+    from repro_torch.core.proxy import lm_unembed_input_proxy
+    from repro_torch.models import (COMPUTE_DTYPE, forward, proxy_features,
+                                    proxy_features_fused, unembed_matrix)
+
     with torch.no_grad():
         hidden, _ = forward(params, cfg, batch)
         w, labels = unembed_matrix(params), batch["labels"]
         h2, y2 = hidden.reshape(-1, cfg.d_model), labels.reshape(-1)
-        ms = {
-            "fused (kernel)": lambda: proxy_features_fused(params, cfg, batch),
-            "einsum": lambda: proxy_features(params, cfg, batch),
+        fns = {
             "kernel head": lambda: ops.ce_proxy(
                 h2, w, y2, valid_v=cfg.vocab_size, compute_dtype=COMPUTE_DTYPE, impl="cuda"),
             "einsum head": lambda: lm_unembed_input_proxy(
                 hidden, w, labels, chunk=cfg.logit_chunk, valid_v=cfg.vocab_size,
                 compute_dtype=COMPUTE_DTYPE),
         }
-        ms = {k: round(median_ms(torch, fn, PROXY_TIMED), 3) for k, fn in ms.items()}
+        if whole:
+            fns["fused (kernel)"] = lambda: proxy_features_fused(params, cfg, batch)
+            fns["einsum"] = lambda: proxy_features(params, cfg, batch)
+        return {k: round(median_ms(torch, fn, PROXY_TIMED), 3) for k, fn in fns.items()}
+
+
+def count_params(cfg, params) -> int:
+    """The parameters' element count, held to the config's: param_count()
+    counts the real vocabulary, the tables hold padded rows."""
+    n = sum(p.numel() for p in params.values())
+    tables = 1 if cfg.tie_embeddings else 2
+    expected = cfg.param_count() + tables * (cfg.padded_vocab - cfg.vocab_size) * cfg.d_model
+    if n != expected:
+        raise AssertionError(f"{cfg.name}: {n} parameters, config says {expected}")
+    return n
+
+
+def published_layers(cfg) -> int:
+    """The published layer count of ``cfg``'s architecture."""
+    from repro_torch.configs import get_config
+
+    return get_config(cfg.name).n_layers
+
+
+def full_width_proxy_check(torch, ops, card, dev) -> None:
+    """qwen3-1.7b at full width, seeded on the card: the fused proxy against
+    the einsum path on one 8 × 512 batch (``hold_fused_proxies``), then both
+    paths timed per batch, whole (forward included) and head alone (on the
+    same hidden states)."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenStream, to_device
+    from repro_torch.models import init_params
+
+    cfg = get_config(LM_ARCH)
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = count_params(cfg, params)
+    ds = TokenStream(n_docs=LM_DOCS, seq_len=LM_SEQ, vocab_size=cfg.vocab_size)
+    batch = to_device(ds.batch(np.arange(LM_BATCH)), dev)
+    held = hold_fused_proxies(torch, cfg, params, batch)
+    log(f"[5] {LM_ARCH} ({n_params:,} params, seeded on the card): fused proxies "
+        f"({LM_BATCH}, {cfg.d_model}) against einsum, max |err| {held['err']:.3e} (tol "
+        f"{held['tol']:.3e}, max|g| {held['max_g']:.3e}); {time.perf_counter() - t0:.1f}s; "
+        f"{card}")
+    ms = proxy_ms(torch, ops, cfg, params, batch, whole=True)
     log(f"[5] {LM_ARCH} proxies per {LM_BATCH}×{LM_SEQ} batch, median ms of {PROXY_TIMED} "
         f"(whole = forward + head): {ms}; {card}")
     log(f"[5] head alone at T = {LM_BATCH * LM_SEQ} tokens, D = {cfg.d_model}, V = "
         f"{cfg.padded_vocab}: ce_proxy kernel {ms['kernel head']} ms, einsum head "
         f"{ms['einsum head']} ms ({ms['kernel head'] / ms['einsum head']:.2f}×); {card}")
-    del params, fused, einsum, batch, hidden, w, labels, h2, y2
+    del params, batch
     torch.cuda.empty_cache()
 
 
-def train_lm(torch, ops, card, dev, mode: str, n_steps: int, expect: tuple,
-             tag: str) -> dict:
-    """``Trainer.run`` at qwen3-1.7b width with per-epoch CRAIG refresh.
-    Counts are zeroed just before the run and read just after.  ``expect``
-    is (refreshes, installs).  With ``mode='sync'`` the refreshes run
-    inline, so step, extraction and selection seconds are measured apart;
-    with ``'async'`` extraction overlaps training (the trainer's default),
-    and each install reports how long its step waited for the selection.
-    Returns the run's losses and launches."""
+def train_lm(torch, ops, card, dev, cfg, docs: int, mode: str, n_steps: int, schedule,
+             expect: tuple, tag: str, phase: int = 6, heads: bool = False) -> dict:
+    """``Trainer.run`` of ``cfg`` with per-epoch CRAIG refresh over ``docs``
+    seeded docs of LM_SEQ tokens, batches of LM_BATCH.  Counts are zeroed
+    just before the run and read just after.  ``expect`` is (refreshes,
+    installs).  With ``mode='sync'`` the refreshes run inline, so step,
+    extraction and selection seconds are measured apart; with ``'async'``
+    extraction overlaps training (the trainer's default), and each install
+    reports how long its step waited for the selection.  Every step's MoE
+    auxiliary loss is recorded (finite and positive for an MoE config).
+    With ``heads`` the trained model's fused proxies are then held to the
+    einsum proxies and both heads timed (``hold_fused_proxies``,
+    ``proxy_ms``).  Returns the run's losses, launches and figures."""
     import numpy as np
 
-    from repro_torch.configs import get_config
     from repro_torch.core.craig import CraigConfig
-    from repro_torch.data.synthetic import TokenStream
+    from repro_torch.data import TokenStream, to_device
     from repro_torch.models import init_params
-    from repro_torch.optim import adamw, warmup_cosine
+    from repro_torch.optim import adamw
     from repro_torch.train import Trainer, TrainerConfig
 
-    cfg = get_config(LM_ARCH)
-    ds = TokenStream(n_docs=LM_DOCS, seq_len=LM_SEQ, vocab_size=cfg.vocab_size)
-    pool_batches = LM_DOCS // LM_BATCH
+    ds = TokenStream(n_docs=docs, seq_len=LM_SEQ, vocab_size=cfg.vocab_size)
+    pool_batches = docs // LM_BATCH
     tcfg = TrainerConfig(
         batch_size=LM_BATCH, select_every_epochs=1,
         craig=CraigConfig(fraction=LM_FRACTION, per_class=False),
         proxy_pool_batches=pool_batches, refresh_mode=mode,
     )
     gen = torch.Generator(device=dev).manual_seed(0)
-    trainer = Trainer(cfg, tcfg, ds, adamw(warmup_cosine(3e-4, 10, LM_STEPS)),
-                      lambda: init_params(cfg, gen), device=dev)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    trainer = Trainer(cfg, tcfg, ds, adamw(schedule), lambda: init_params(cfg, gen), device=dev)
+    n_params = count_params(cfg, trainer.params)
+    aux, step = [], trainer.train_step
+
+    def recording_step(*args):
+        out = step(*args)
+        aux.append(float(out[2]["aux_loss"]))
+        return out
+
+    trainer.train_step = recording_step
+    torch.cuda.synchronize()
     for k in ops.LAUNCHES:
         ops.LAUNCHES[k] = 0
     t0 = time.perf_counter()
@@ -529,14 +615,16 @@ def train_lm(torch, ops, card, dev, mode: str, n_steps: int, expect: tuple,
     if len(steps) != n_steps or not all(math.isfinite(v) for v in losses):
         raise AssertionError(f"{tag}: {len(steps)} steps, losses {losses}")
     if not losses[-1] < losses[0]:
-        raise AssertionError(f"{tag}: loss did not fall: {losses[0]} → {losses[-1]}")
+        raise AssertionError(f"{tag}: loss did not fall: {losses}")
+    if cfg.n_experts and not all(math.isfinite(a) and a > 0 for a in aux):
+        raise AssertionError(f"{tag}: MoE aux losses {aux}")
     if (n_refresh, len(installs)) != expect or pending is None:
         raise AssertionError(f"{tag}: {n_refresh} refreshes, {len(installs)} installs, "
                              f"pending {pending is not None}; expected {expect}, one staged")
     sums = [m["weight_sum"] for m in installs]
     sums.append(float(np.sum(pending["weights"], dtype=np.float64)))
-    if any(abs(v - LM_DOCS) > 1e-3 for v in sums):
-        raise AssertionError(f"{tag}: Σγ per published selection {sums}, expected {LM_DOCS}")
+    if any(abs(v - docs) > 1e-3 for v in sums):
+        raise AssertionError(f"{tag}: Σγ per published selection {sums}, expected {docs}")
     if launches["ce_proxy"] != n_refresh * pool_batches:
         raise AssertionError(f"{tag}: ce_proxy launched {launches}; expected "
                              f"{pool_batches} per refresh × {n_refresh}")
@@ -545,20 +633,147 @@ def train_lm(torch, ops, card, dev, mode: str, n_steps: int, expect: tuple,
     per = [(r["version"], round(r["extract_time_s"], 3), round(r["selection_time_s"], 3))
            for r in refreshes]
     stalls = [round(m["install_stall_s"], 3) for m in installs]
-    log(f"[6] {tag}: {LM_ARCH} Trainer.run, refresh_mode={mode!r}: {n_steps} steps of "
+    aux_txt = f"; aux loss {aux[0]:.4f} → {aux[-1]:.4f}" if cfg.n_experts else ""
+    log(f"[{phase}] {tag}: {cfg.name} ({cfg.n_layers} of {published_layers(cfg)} layers, "
+        f"{n_params:,} params) Trainer.run, refresh_mode={mode!r}: {n_steps} steps of "
         f"{LM_BATCH}×{LM_SEQ} tokens in {total_s:.1f}s; loss {losses[0]:.4f} → "
-        f"{losses[-1]:.4f}; coreset {installs[-1]['coreset_size']}/{LM_DOCS} docs; Σγ per "
-        f"published selection {sums}; launches {launches}")
-    log(f"[6] {tag}: median {step_s:.4f} s/step ({LM_BATCH * LM_SEQ / step_s:.0f} "
+        f"{losses[-1]:.4f}{aux_txt}; coreset {installs[-1]['coreset_size']}/{docs} docs; Σγ "
+        f"per published selection {sums}; launches {launches}")
+    log(f"[{phase}] {tag}: median {step_s:.4f} s/step ({LM_BATCH * LM_SEQ / step_s:.0f} "
         f"tokens/s); per refresh (version, extract s, select s): {per}; install stalls "
         f"{stalls} s; max_memory_allocated {peak_gb:.2f} GB; {card}")
+    out = {"losses": losses, "launches": launches["ce_proxy"]}
+    if heads:
+        batch = to_device(ds.batch(np.arange(LM_BATCH)), dev)
+        held = hold_fused_proxies(torch, cfg, trainer.params, batch)
+        ms = proxy_ms(torch, ops, cfg, trainer.params, batch, whole=False)
+        log(f"[{phase}] {tag}: the trained model's fused proxies against einsum, max |err| "
+            f"{held['err']:.3e} (tol {held['tol']:.3e}); heads per {LM_BATCH}×{LM_SEQ} batch, "
+            f"median ms of {PROXY_TIMED} at D = {cfg.d_model}, V = {cfg.padded_vocab}: {ms}; "
+            f"{card}")
+        del batch
     del trainer
     torch.cuda.empty_cache()
     left_gb = torch.cuda.memory_allocated() / 1e9
     if left_gb > FREED_GB:
         raise AssertionError(f"{tag}: {left_gb:.2f} GB still allocated after the "
                              "trainer was deleted")
-    return {"losses": losses, "launches": launches["ce_proxy"]}
+    return out
+
+
+def refresh_forward_only(torch, ops, card, dev, cfg, docs: int, tag: str) -> dict:
+    """One CRAIG refresh of ``cfg`` without an optimizer, through the
+    trainer's own parts: ``ProxyExtractor`` over ``make_select_step`` (the
+    ``ce_proxy`` kernel on the card) and ``CraigSelector``.  Counts are
+    zeroed just before and read just after.  Then the fused proxies held
+    to the einsum proxies, both heads timed, and one batch's loss and MoE
+    auxiliary loss."""
+    import numpy as np
+
+    from repro_torch.core.craig import CraigConfig, CraigSelector
+    from repro_torch.core.extract import ProxyExtractor
+    from repro_torch.data import TokenStream, to_device
+    from repro_torch.models import init_params, loss_fn
+    from repro_torch.train.train_step import make_select_step
+
+    ds = TokenStream(n_docs=docs, seq_len=LM_SEQ, vocab_size=cfg.vocab_size)
+    pool_batches = docs // LM_BATCH
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    n_params = count_params(cfg, params)
+    extractor = ProxyExtractor(make_select_step(cfg), ds, LM_BATCH, megabatch=pool_batches)
+    torch.cuda.synchronize()
+    for k in ops.LAUNCHES:
+        ops.LAUNCHES[k] = 0
+    t0 = time.perf_counter()
+    feats = extractor.extract(params, np.arange(docs))
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    sel = CraigSelector(CraigConfig(fraction=LM_FRACTION, per_class=False),
+                        device=dev).select(feats)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    launches = dict(ops.LAUNCHES)
+    if feats.shape != (docs, cfg.d_model) or not bool(torch.isfinite(feats).all()):
+        raise AssertionError(f"{tag}: features {tuple(feats.shape)} or non-finite")
+    if launches["ce_proxy"] != pool_batches:
+        raise AssertionError(f"{tag}: ce_proxy launched {launches}; expected {pool_batches}")
+    wsum = float(np.sum(sel.weights, dtype=np.float64))
+    if abs(wsum - docs) > 1e-3 or len(np.unique(sel.indices)) != sel.size:
+        raise AssertionError(f"{tag}: Σγ {wsum} (expected {docs}) or duplicate indices")
+    batch = to_device(ds.batch(np.arange(LM_BATCH)), dev)
+    with torch.no_grad():
+        _, m = loss_fn(params, cfg, batch)
+    loss, aux = float(m["loss"]), float(m["aux_loss"])
+    if not math.isfinite(loss) or (cfg.n_experts and not (math.isfinite(aux) and aux > 0)):
+        raise AssertionError(f"{tag}: loss {loss}, aux loss {aux}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    log(f"[9] {tag}: {cfg.name} ({cfg.n_layers} of {published_layers(cfg)} layers, "
+        f"{n_params:,} params, forward only) one refresh of {docs} docs: extract "
+        f"{t1 - t0:.3f}s, select {t2 - t1:.3f}s; coreset {sel.size}/{docs}, Σγ {wsum:.0f}; "
+        f"launches {launches}; loss {loss:.4f}, aux loss {aux:.4f}; max_memory_allocated "
+        f"{peak_gb:.2f} GB; {card}")
+    held = hold_fused_proxies(torch, cfg, params, batch)
+    ms = proxy_ms(torch, ops, cfg, params, batch, whole=False)
+    log(f"[9] {tag}: fused proxies against einsum, max |err| {held['err']:.3e} (tol "
+        f"{held['tol']:.3e}); heads per {LM_BATCH}×{LM_SEQ} batch, median ms of "
+        f"{PROXY_TIMED} at D = {cfg.d_model}, V = {cfg.padded_vocab}: {ms}; {card}")
+    del params, feats, batch, extractor
+    torch.cuda.empty_cache()
+    left_gb = torch.cuda.memory_allocated() / 1e9
+    if left_gb > FREED_GB:
+        raise AssertionError(f"{tag}: {left_gb:.2f} GB still allocated after the refresh")
+    return {"launches": launches["ce_proxy"]}
+
+
+def wide_lm_training(torch, ops, card, dev) -> dict:
+    """Phase 9: each config of WIDE_LM at its published width with depth
+    cut, on the seeded token stream (WIDE_DOCS docs): ``train_lm`` through
+    two inline refreshes and one install, or ``refresh_forward_only``;
+    every refresh launches ``ce_proxy`` once a pool batch at the config's
+    (D, padded V).  Then the ``launch/train.py`` subprocess.  Returns the
+    figures per config."""
+    from repro_torch.configs import get_config
+    from repro_torch.optim import warmup_cosine
+
+    t0 = time.perf_counter()
+    out = {}
+    for name, (layers, train) in WIDE_LM.items():
+        cfg = dataclasses.replace(get_config(name), n_layers=layers)
+        if (cfg.d_model, cfg.padded_vocab, cfg.vocab_size) != CE_WIDE[name]:
+            raise AssertionError(f"{name}: CE_WIDE {CE_WIDE[name]} is not the config's shape")
+        tc = time.perf_counter()
+        if train:
+            out[name] = train_lm(torch, ops, card, dev, cfg, WIDE_DOCS, "sync", WIDE_STEPS,
+                                 warmup_cosine(WIDE_LR, 2, WIDE_STEPS), (2, 1),
+                                 "published width", phase=9, heads=True)
+        else:
+            out[name] = refresh_forward_only(torch, ops, card, dev, cfg, WIDE_DOCS,
+                                             "published width")
+        log(f"[9] {name}: {time.perf_counter() - tc:.1f}s")
+    train_round_trip(card)
+    log(f"[9] phase total {time.perf_counter() - t0:.1f}s")
+    return out
+
+
+def train_round_trip(card) -> None:
+    """``python -m repro_torch.launch.train --arch moonshot-v1-16b-a3b
+    --smoke --device cuda --steps 12`` in a subprocess: exits 0 and reports
+    its 12 steps."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch", "moonshot-v1-16b-a3b",
+         "--smoke", "--device", "cuda", "--steps", "12"],
+        capture_output=True, text=True, env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+        timeout=300,
+    )
+    if proc.returncode != 0 or "12 steps in" not in proc.stdout:
+        raise AssertionError(f"launch/train.py exited {proc.returncode}: "
+                             f"{proc.stdout[-2000:]} {proc.stderr[-2000:]}")
+    log(f"[9] launch/train.py --arch moonshot-v1-16b-a3b --smoke --device cuda --steps 12: "
+        f"{' | '.join(proc.stdout.strip().splitlines())} ({time.perf_counter() - t0:.1f}s, "
+        f"process start included); {card}")
 
 
 def bound(t_ops: float, t_bytes: float) -> dict:
@@ -1354,10 +1569,16 @@ def main() -> None:
     full_width_proxy_check(torch, ops, card, dev)
 
     # -- 6. LM coreset training: the slice-2 main path ----------------------
-    sync = train_lm(torch, ops, card, dev, "sync", LM_STEPS, (3, 2), "main path")
+    from repro_torch.configs import get_config
+    from repro_torch.optim import warmup_cosine
+
+    lm_cfg = get_config(LM_ARCH)
+    sync = train_lm(torch, ops, card, dev, lm_cfg, LM_DOCS, "sync", LM_STEPS,
+                    warmup_cosine(3e-4, 10, LM_STEPS), (3, 2), "main path")
     results["ce_proxy"]["launches"] = sync["launches"]
     # the trainer's default mode: the first selection overlaps epoch 0
-    asyn = train_lm(torch, ops, card, dev, "async", LM_ASYNC_STEPS, (2, 1), "async")
+    asyn = train_lm(torch, ops, card, dev, lm_cfg, LM_DOCS, "async", LM_ASYNC_STEPS,
+                    warmup_cosine(3e-4, 10, LM_STEPS), (2, 1), "async")
     # Both modes train on the full data until the first install, from the
     # same seed: bf16 steps through cuBLAS and the embedding's scattered
     # backward need not repeat bit for bit, so a relative 1e-2.
@@ -1378,7 +1599,11 @@ def main() -> None:
     results["fl_replay"] = coreset_service(torch, ops, card, dev, peaks)
     max_err["fl_replay"] = max(max_err["fl_replay"], results["fl_replay"].pop("max_abs_err_main"))
 
-    # -- 9. report ----------------------------------------------------------
+    # -- 9. LM coreset training at the published widths: slice 7's path -----
+    wide = wide_lm_training(torch, ops, card, dev)
+    results["ce_proxy"]["launches"] += sum(r["launches"] for r in wide.values())
+
+    # -- 10. report ---------------------------------------------------------
     replaces = {
         "fl_gains": "src/repro/kernels/fl_gains.py:106",
         "fl_gains_argmax": "src/repro/kernels/fl_gains.py:197",
@@ -1407,8 +1632,8 @@ def main() -> None:
         })
     if any(k["launches"] < 1 for k in kernels):
         raise AssertionError(f"a kernel of the path was never launched: {kernels}")
-    log(f"[9] ce_proxy fp32 at the main-path shape: {results['ce_proxy']['fp32']}")
-    log(f"[9] total {time.perf_counter() - t_start:.1f}s")
+    log(f"[10] ce_proxy fp32 at the main-path shape: {results['ce_proxy']['fp32']}")
+    log(f"[10] total {time.perf_counter() - t_start:.1f}s")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -6,8 +6,9 @@ into ``build/variants/`` and timing them with CUDA events beside the
 committed kernel, in one process on one card:
 
   --ablate               ``ce_proxy`` bf16 at T = 4,096, D = 2048,
-                         V = 151,936 and at the wide widths of chip_smoke.py's
-                         CE_WIDE (route 2: 7-, 8- and 12-CTA clusters): the
+                         V = 151,936 and at the (D, padded V) of
+                         chip_smoke.py's CE_WIDE (route 1, and route 2 in 7-,
+                         8- and 12-CTA clusters): the
                          committed kernel, then copies with one part
                          removed each (the cluster barriers, the
                          reduce-scatter, the logits product, the accumulate
@@ -66,6 +67,13 @@ committed kernel, in one process on one card:
                          the gains bitwise equal at chip_smoke.py's check
                          shapes, and the times of both at the Ijcnn1-shaped
                          sweeps (n = m = 33,216 and 16,774, d = 22).
+  --lr-probe             chip_smoke.py's phase 9 under other AdamW peak
+                         rates: every training config of its WIDE_LM at
+                         published width (and nemotron-4-15b at 1 layer),
+                         9 steps of ``train_lm`` at each (rate, warm-up) of
+                         LR_PROBE, logging the step losses.  A run whose
+                         last loss is not below its first is logged as
+                         such; any other failure raises.
 
 Run from the repository root:
 
@@ -74,6 +82,7 @@ Run from the repository root:
     python3 chip_variants.py --topk-baseline build/topk_prev.cu \
         --replay-baseline build/replay_prev.cu
     python3 chip_variants.py --l2-baseline build/base/pairwise_l2.cu
+    python3 chip_variants.py --lr-probe
 
 Registers and CTAs per SM are logged for both sides: the committed
 kernels' from their C occupancy entries (cudaFuncGetAttributes and
@@ -90,6 +99,8 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 OUT = ROOT / "build" / "variants"
+# (peak rate, warm-up steps) of ``--lr-probe``
+LR_PROBE = ((3e-4, 10), (3e-4, 2), (1e-4, 10), (1e-4, 2), (5e-5, 2), (3e-5, 2))
 
 # Each ablation: (text in csrc/ce_proxy.cu, replacement).
 ABLATIONS = {
@@ -318,8 +329,7 @@ def ce_operands(torch, T, D, V, seed=0):
 def ablate(torch, cs) -> None:
     from repro_torch.kernels import ce_proxy as kce
 
-    shapes = [(4096, 2048, 151_936)] + [(4096, D, V) for T, D, V, _ in cs.CE_SHAPES
-                                         if D in cs.CE_WIDE and T == 4096]
+    shapes = [(4096, 2048, 151_936)] + [(4096, D, V) for D, V, _ in cs.CE_WIDE.values()]
     runs = variants("ce_proxy", ABLATIONS)
     forced = {r: v for r, v in variants("ce_proxy", {
         f"route {r} forced": subs for r, subs in ROUTE_FORCES.items()}).items() if v}
@@ -351,6 +361,35 @@ def ablate(torch, cs) -> None:
                 f"{route['route']}| {err:.3e} (tol {tol:.3e})")
         del h, w, y
         torch.cuda.empty_cache()
+
+
+def lr_probe(torch, cs) -> None:
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.optim import warmup_cosine
+
+    dev = torch.device("cuda")
+    card = cs.card_line()
+    runs = [(name, layers) for name, (layers, train) in cs.WIDE_LM.items() if train]
+    runs.append(("nemotron-4-15b", 1))
+    for name, layers in runs:
+        cfg = dataclasses.replace(get_config(name), n_layers=layers)
+        for lr, warm in LR_PROBE:
+            tag = f"{name} ({layers} layers), peak {lr:g} after {warm} steps"
+            try:
+                r = cs.train_lm(torch, ops, card, dev, cfg, cs.WIDE_DOCS, "sync",
+                                cs.WIDE_STEPS, warmup_cosine(lr, warm, cs.WIDE_STEPS), (2, 1),
+                                f"lr probe {tag}", phase=9)
+                losses = r["losses"]
+            except AssertionError as e:
+                if "loss did not fall" not in str(e):
+                    raise
+                losses = [float(v) for v in str(e).split("[", 1)[1].rstrip("]").split(",")]
+            log(f"[lr-probe] {tag}: loss {losses[0]:.3f} → {losses[-1]:.3f} "
+                f"({'falls' if losses[-1] < losses[0] else 'does not fall'}); steps "
+                f"{[round(v, 3) for v in losses]}")
 
 
 def ce_baseline(torch, cs, path: Path) -> None:
@@ -661,6 +700,7 @@ def main() -> None:
     ap.add_argument("--topk-baseline", type=Path)
     ap.add_argument("--replay-baseline", type=Path)
     ap.add_argument("--twin-baseline", type=Path, nargs="+")
+    ap.add_argument("--lr-probe", action="store_true")
     args = ap.parse_args()
     import torch
 
@@ -688,6 +728,8 @@ def main() -> None:
         l2_baseline(torch, cs, args.l2_baseline)
     if args.twin_baseline:
         twin_baseline(torch, cs, args.twin_baseline)
+    if args.lr_probe:
+        lr_probe(torch, cs)
 
 
 if __name__ == "__main__":

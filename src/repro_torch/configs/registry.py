@@ -1,20 +1,77 @@
-"""Architecture lookup (port of ``repro.configs.registry.get_config``).
+"""Architecture registry: full configs and reduced smoke variants.
 
-Only the configurations the port runs are registered; the reference's
-other architectures come with their families (ROADMAP.md queue 1,
-slice 5).
+Port of ``repro.configs.registry`` (``ARCHS``, ``get_config``,
+``smoke_config``).  Only the configurations the port runs are registered:
+the dense and MoE families with global attention.  The reference's other
+architectures come with their families (ROADMAP.md queue 1, item 5).
 """
 from __future__ import annotations
 
-from repro_torch.configs import qwen3_1_7b
+import dataclasses
+
+from repro_torch.configs import (
+    dbrx_132b,
+    granite_3_8b,
+    moonshot_v1_16b_a3b,
+    nemotron_4_15b,
+    qwen2_7b,
+    qwen3_1_7b,
+)
 from repro_torch.models.config import ModelConfig
 
-__all__ = ["ARCHS", "get_config"]
+__all__ = ["ARCHS", "get_config", "smoke_config"]
 
-ARCHS: dict[str, ModelConfig] = {c.CONFIG.name: c.CONFIG for c in (qwen3_1_7b,)}
+ARCHS: dict[str, ModelConfig] = {
+    c.CONFIG.name: c.CONFIG
+    for c in (
+        granite_3_8b,
+        qwen2_7b,
+        qwen3_1_7b,
+        nemotron_4_15b,
+        moonshot_v1_16b_a3b,
+        dbrx_132b,
+    )
+}
 
 
 def get_config(arch: str) -> ModelConfig:
     if arch not in ARCHS:
         raise KeyError(f"unknown arch {arch!r}; have {sorted(ARCHS)}")
     return ARCHS[arch]
+
+
+def smoke_config(arch: str) -> ModelConfig:
+    """Reduced same-family config: one period + remainder, tiny dims."""
+    full = get_config(arch)
+    period = len(full.block_pattern)
+    n_layers = period + min(2, period)  # ≥1 full period + remainder layers
+    d_model = 64
+    n_heads = min(full.n_heads, 4)
+    # keep the GQA ratio flavor: MQA stays MQA, MHA stays MHA
+    if full.n_kv_heads == 1:
+        n_kv = 1
+    elif full.n_kv_heads == full.n_heads:
+        n_kv = n_heads
+    else:
+        n_kv = max(1, n_heads // 2)
+    return dataclasses.replace(
+        full,
+        n_layers=n_layers,
+        d_model=d_model,
+        n_heads=n_heads,
+        n_kv_heads=n_kv,
+        d_head=d_model // n_heads if full.d_head else 0,
+        d_ff=128 if full.d_ff else 0,
+        vocab_size=512,
+        n_experts=4 if full.n_experts else 0,
+        top_k=2 if full.n_experts else 0,
+        n_shared_experts=1 if full.n_shared_experts else 0,
+        d_rnn=d_model if full.d_rnn else 0,
+        window=8 if full.window else None,
+        mrope_sections=(4, 2, 2) if full.mrope_sections else None,
+        mlstm_chunk=8,
+        blockwise_threshold=64,
+        attn_chunk_q=16,
+        attn_chunk_kv=16,
+        logit_chunk=16,
+    )

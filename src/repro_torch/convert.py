@@ -119,9 +119,14 @@ def model_params_from_reference(tree: dict, cfg, device: str | torch.device = "c
     The stacked ``stack.scanned`` periods (leading axis = period index)
     and the ``stack.remainder`` list become ``layers.<i>.*`` in layer
     order; nested dicts become dotted names; attention weights keep their
-    (d, H, hd) / (H, hd, d) layouts; the (d, padded_vocab) ``unembed`` is
-    transposed to the port's vocab-major (padded_vocab, d).
+    (d, H, hd) / (H, hd, d) layouts, MoE experts their (E, …) ones; the
+    (d, padded_vocab) ``unembed`` is transposed to the port's vocab-major
+    (padded_vocab, d).  Raises ``ValueError`` when a parameter of
+    ``models.param_shapes(cfg)`` is missing, when the tree holds one that
+    is not there, or when a shape differs.
     """
+    from repro_torch.models import param_shapes
+
     dev = resolve_device(device)
     period = len(cfg.block_pattern)
     layers: list[dict] = []
@@ -142,6 +147,13 @@ def model_params_from_reference(tree: dict, cfg, device: str | torch.device = "c
     out["final_norm.scale"] = tree["final_norm"]["scale"]
     if "unembed" in tree:
         out["unembed"] = np.asarray(tree["unembed"]).T
+    want = param_shapes(cfg)
+    missing, extra = sorted(set(want) - set(out)), sorted(set(out) - set(want))
+    if missing or extra:
+        raise ValueError(f"reference tree for {cfg.name}: missing {missing}, extra {extra}")
+    bad = {k: (np.shape(v), want[k]) for k, v in out.items() if np.shape(v) != want[k]}
+    if bad:
+        raise ValueError(f"reference tree for {cfg.name}: shapes (got, want) {bad}")
     return {
         k: torch.from_numpy(np.array(v, np.float32)).to(dev) for k, v in out.items()
     }

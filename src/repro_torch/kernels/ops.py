@@ -153,7 +153,7 @@ def ce_proxy(
         −∞); None means all V columns are real.
       compute_dtype: dtype of the two matrix products (torch.float32 or
         torch.bfloat16); accumulation and the softmax state stay fp32.
-        On a card the bf16 kernel is the production route (D ≤ 2048).
+        On a card the bf16 kernel is the production route (every D).
         The fp32 kernel is for parity with the reference only: it runs
         on the CUDA cores and is several times slower than the plain
         twin (``impl='torch'``), whose fp32 GEMMs go through cuBLAS; PERF.md

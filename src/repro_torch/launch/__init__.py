@@ -1,1 +1,1 @@
-"""Command-line drivers (port of ``repro.launch``: ``serve`` only)."""
+"""Command-line entry points (port of ``repro.launch``: ``serve`` and ``train``)."""

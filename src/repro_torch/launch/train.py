@@ -1,0 +1,95 @@
+"""Training launcher: CRAIG LM training of a registered architecture.
+
+Port of ``repro.launch.train`` (single device):
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-1.7b --smoke \\
+        --steps 20 --batch 8 --seq 64
+    PYTHONPATH=src python -m repro_torch.launch.train --arch moonshot-v1-16b-a3b \\
+        --smoke --device cpu --steps 12
+
+``--smoke`` takes the reduced same-family config (``configs.smoke_config``);
+without it the published config runs.  Wired in as in the reference: CRAIG
+per-epoch coreset refresh (``--craig-fraction``, ``--select-every``),
+micro-batched gradient accumulation, checkpoint/restart (``--ckpt``) and
+SIGTERM → emergency save.  The trainer runs on ``--device`` (default
+``cuda``; ``cpu`` on request); on a card the refresh's proxies go through
+the ``ce_proxy`` kernel.  The reference's multi-host mesh and
+``--dry-run`` lowering are not ported (ROADMAP.md queue 1, items 4 and 7).
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+import numpy as np
+import torch
+
+from repro_torch._device import resolve_device
+from repro_torch.configs import ARCHS, get_config, smoke_config
+from repro_torch.core.craig import CraigConfig
+from repro_torch.data.synthetic import TokenStream
+from repro_torch.models import init_params
+from repro_torch.optim import adamw, warmup_cosine
+from repro_torch.train import Trainer, TrainerConfig
+
+
+def parse_args(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", choices=sorted(ARCHS), required=True)
+    ap.add_argument("--smoke", action="store_true",
+                    help="reduced same-family config (CPU-runnable)")
+    ap.add_argument("--steps", type=int, default=50)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=64)
+    ap.add_argument("--docs", type=int, default=256)
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--microbatches", type=int, default=1)
+    ap.add_argument("--craig-fraction", type=float, default=0.5)
+    ap.add_argument("--no-craig", action="store_true")
+    ap.add_argument("--select-every", type=int, default=1)
+    ap.add_argument("--ckpt", default=None)
+    ap.add_argument("--device", default="cuda")
+    return ap.parse_args(argv)
+
+
+def main(argv=None) -> dict:
+    """Run training; returns the step losses and the number of CRAIG
+    selections run."""
+    args = parse_args(argv)
+    device = resolve_device(args.device)
+    cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    print(f"arch={cfg.name} ({'smoke' if args.smoke else 'full'}) "
+          f"params≈{cfg.param_count()/1e6:.1f}M layers={cfg.n_layers} device={device}")
+
+    ds = TokenStream(n_docs=args.docs, seq_len=args.seq,
+                     vocab_size=cfg.vocab_size, n_topics=16)
+    tcfg = TrainerConfig(
+        batch_size=args.batch,
+        select_every_epochs=0 if args.no_craig else args.select_every,
+        use_craig=not args.no_craig,
+        craig=CraigConfig(fraction=args.craig_fraction, per_class=False),
+        proxy_pool_batches=max(1, args.docs // args.batch),
+        checkpoint_dir=args.ckpt,
+        microbatches=args.microbatches,
+    )
+    gen = torch.Generator(device=device).manual_seed(0)
+    trainer = Trainer(
+        cfg, tcfg, ds, adamw(warmup_cosine(args.lr, 10, args.steps)),
+        lambda: init_params(cfg, gen), device=device,
+    )
+    trainer.install_signal_handler()
+    if trainer.restore_or_init():
+        print(f"restored at step {trainer.step}")
+    t0 = time.time()
+    log = trainer.run(args.steps)
+    trainer.refresher.wait()
+    steps = [m for m in log if m["event"] == "step"]
+    losses = [m["loss"] for m in steps]
+    if steps:
+        print(f"{len(steps)} steps in {time.time()-t0:.1f}s; "
+              f"loss {losses[0]:.3f} → {np.mean(losses[-5:]):.3f}")
+    return {"losses": losses, "selections": trainer.refresher.version}
+
+
+if __name__ == "__main__":
+    main()

@@ -1,10 +1,11 @@
-"""Dense decoder-only LM (port of ``repro.models``; dense 'attn' layers)."""
+"""Decoder-only LM (port of ``repro.models``; dense and MoE 'attn' layers)."""
 from repro_torch.models.config import ModelConfig, require_ported
 from repro_torch.models.model import (
     COMPUTE_DTYPE,
     forward,
     init_params,
     loss_fn,
+    param_shapes,
     proxy_features,
     proxy_features_fused,
     unembed_matrix,
@@ -15,6 +16,7 @@ __all__ = [
     "require_ported",
     "COMPUTE_DTYPE",
     "init_params",
+    "param_shapes",
     "forward",
     "loss_fn",
     "proxy_features",

@@ -1,7 +1,7 @@
-"""Layer stack: dense FFN, one pre-norm layer, the stack with remat.
+"""Layer stack: dense or MoE FFN, one pre-norm layer, the stack with remat.
 
-Port of the dense ``'attn'`` path of ``repro.models.blocks`` (``_ffn``,
-``_layer_forward``, ``stack_forward``).  The reference stacks the full
+Port of the ``'attn'`` path of ``repro.models.blocks`` (``_moe_cfg``,
+``_ffn``, ``_layer_forward``, ``stack_forward``).  The reference stacks the full
 pattern periods under one ``lax.scan`` plus unrolled remainder layers;
 PyTorch has no scan to keep compile time flat, so the port keeps one
 parameter set per layer and runs them in order (``convert.py`` unstacks
@@ -12,7 +12,13 @@ everything; ``"dots"`` is not ported.
 
 Parameters live in one flat dict keyed ``layers.<i>.<name>``:
 ``norm1.scale``, ``mixer.<attention param>``, ``norm2.scale``,
-``ffn.w_in`` (d, 2·d_ff when gated) and ``ffn.w_out`` (d_ff, d).
+``ffn.w_in`` (d, 2·d_ff when gated) and ``ffn.w_out`` (d_ff, d) — or, with
+``n_experts``, the MoE FFN's ``ffn.router``, ``ffn.experts_in``,
+``ffn.experts_out`` and (shared experts) ``ffn.shared_in``,
+``ffn.shared_out`` (``models/moe.py``).  The stack returns the hidden
+states and the MoE auxiliary loss summed over layers (0 for dense layers).
+Under remat the recompute routes every token as the forward did: routing
+is a function of the layer's input alone.
 """
 from __future__ import annotations
 
@@ -22,8 +28,10 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.models.attention import AttentionConfig, attention, init_attention
 from repro_torch.models.config import ModelConfig, require_ported
 from repro_torch.models.layers import activation_fn, dense_init, layer_norm, rms_norm
+from repro_torch.models.moe import MoEConfig, init_moe, moe_ffn
 
-__all__ = ["init_stack", "stack_forward", "layer_params", "attn_config", "norm_fn"]
+__all__ = ["init_stack", "stack_forward", "layer_params", "attn_config", "moe_config",
+           "norm_fn"]
 
 
 def attn_config(cfg: ModelConfig) -> AttentionConfig:
@@ -38,6 +46,19 @@ def attn_config(cfg: ModelConfig) -> AttentionConfig:
         blockwise_threshold=cfg.blockwise_threshold,
         chunk_q=cfg.attn_chunk_q,
         chunk_kv=cfg.attn_chunk_kv,
+    )
+
+
+def moe_config(cfg: ModelConfig) -> MoEConfig:
+    return MoEConfig(
+        d_model=cfg.d_model,
+        d_ff_expert=cfg.d_ff,
+        n_experts=cfg.n_experts,
+        top_k=cfg.top_k,
+        n_shared_experts=cfg.n_shared_experts,
+        capacity_factor=cfg.capacity_factor,
+        activation=cfg.activation,
+        gated=cfg.gated_ffn,
     )
 
 
@@ -61,10 +82,14 @@ def _init_layer(cfg: ModelConfig, generator, device) -> dict:
     for k, v in init_attention(attn_config(cfg), generator, device).items():
         p[f"mixer.{k}"] = v
     if cfg.d_ff:
-        mult = 2 if cfg.gated_ffn else 1
         p["norm2.scale"] = torch.ones((d,), device=device)
-        p["ffn.w_in"] = dense_init((d, mult * cfg.d_ff), generator, device)
-        p["ffn.w_out"] = dense_init((cfg.d_ff, d), generator, device)
+        if cfg.n_experts:
+            ffn = init_moe(moe_config(cfg), generator, device)
+        else:
+            mult = 2 if cfg.gated_ffn else 1
+            ffn = {"w_in": dense_init((d, mult * cfg.d_ff), generator, device),
+                   "w_out": dense_init((cfg.d_ff, d), generator, device)}
+        p.update({f"ffn.{k}": v for k, v in ffn.items()})
     return p
 
 
@@ -89,29 +114,37 @@ def _ffn(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     return h @ p["w_out"].to(x.dtype)
 
 
-def _layer_forward(p: dict, cfg: ModelConfig, x: torch.Tensor, positions) -> torch.Tensor:
+def _layer_forward(p: dict, cfg: ModelConfig, x: torch.Tensor, positions):
+    """Returns (x', aux): aux is the MoE load-balancing loss, 0 for a dense
+    layer; the MoE dispatches each batch row as one group."""
     norm = norm_fn(cfg)
+    aux = torch.zeros((), device=x.device)
     h = norm(p["norm1.scale"], x, cfg.norm_eps)
     x = x + attention(_sub(p, "mixer."), attn_config(cfg), h, positions)
-    if "ffn.w_in" in p:
+    if cfg.d_ff:
         h = norm(p["norm2.scale"], x, cfg.norm_eps)
-        x = x + _ffn(_sub(p, "ffn."), cfg, h)
-    return x
+        if cfg.n_experts:
+            y, aux = moe_ffn(_sub(p, "ffn."), moe_config(cfg), h)
+            x = x + y
+        else:
+            x = x + _ffn(_sub(p, "ffn."), cfg, h)
+    return x, aux
 
 
-def stack_forward(params: dict, cfg: ModelConfig, x: torch.Tensor, positions) -> torch.Tensor:
-    """Run every layer in order. x (B, T, D) → x'.  (Dense layers carry no
-    auxiliary loss; the reference's ``aux`` is zero for them.)"""
+def stack_forward(params: dict, cfg: ModelConfig, x: torch.Tensor, positions):
+    """Run every layer in order. x (B, T, D) → (x', aux summed over layers)."""
     if cfg.remat_policy not in ("nothing", "full"):
         raise NotImplementedError(
             f"remat_policy {cfg.remat_policy!r} is not ported to repro_torch "
             "(ROADMAP.md queue 1, slice 5); use 'nothing' or 'full'"
         )
     remat = cfg.remat_policy == "nothing" and torch.is_grad_enabled()
+    aux = torch.zeros((), device=x.device)
     for i in range(cfg.n_layers):
         p = layer_params(params, i)
         if remat:
-            x = checkpoint(_layer_forward, p, cfg, x, positions, use_reentrant=False)
+            x, a = checkpoint(_layer_forward, p, cfg, x, positions, use_reentrant=False)
         else:
-            x = _layer_forward(p, cfg, x, positions)
-    return x
+            x, a = _layer_forward(p, cfg, x, positions)
+        aux = aux + a
+    return x, aux

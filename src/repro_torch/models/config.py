@@ -2,7 +2,7 @@
 
 The port's own copy of the reference's ``ModelConfig``, field for field,
 with ``padded_vocab``, ``layer_kinds`` and ``param_count``.  The port runs
-only the dense family with global attention layers so far;
+the dense and MoE families with global attention layers so far;
 :func:`require_ported` raises ``NotImplementedError`` for anything else,
 naming the ROADMAP item that ports it.
 """
@@ -14,7 +14,8 @@ from typing import Literal
 __all__ = ["ModelConfig", "require_ported"]
 
 # The ROADMAP item that ports the families and layer kinds the port lacks.
-_FAMILY_ITEM = "ROADMAP.md queue 1, slice 5 'Remaining model families'"
+_FAMILY_ITEM = "ROADMAP.md queue 1, item 5 'the other families'"
+_PORTED_FAMILIES = ("dense", "moe")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -145,12 +146,12 @@ class ModelConfig:
 
 def require_ported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` unless the port can run ``cfg``: the
-    dense family, 'attn' layers, token frontend, one output head, no
-    M-RoPE."""
-    if cfg.family != "dense" or cfg.n_experts:
+    dense or MoE family, 'attn' layers, token frontend, one output head,
+    no M-RoPE."""
+    if cfg.family not in _PORTED_FAMILIES:
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} is not ported to repro_torch "
-            f"({_FAMILY_ITEM}); only 'dense' runs"
+            f"({_FAMILY_ITEM}); only {_PORTED_FAMILIES} run"
         )
     bad = sorted(set(cfg.layer_kinds) - {"attn"})
     if bad:

@@ -4,8 +4,10 @@ Port of the training path of ``repro.models.model``:
 
 * ``init_params(cfg, generator)`` — fp32 master weights, on the
   generator's device;
+* ``param_shapes(cfg)`` — every parameter's name and shape;
 * ``forward(params, cfg, batch)`` — hidden states (B, T, D) after the final
-  norm, in ``COMPUTE_DTYPE``, and the auxiliary loss (0 for dense layers);
+  norm, in ``COMPUTE_DTYPE``, and the MoE auxiliary loss summed over
+  layers (0 for dense layers);
 * ``loss_fn(params, cfg, batch)`` — γ-weighted mean CE:
   Σ_b per_example_b·w_b / max(Σw, 1e-6), per-example weights = the
   paper's per-element stepsizes (Eq. 20);
@@ -36,6 +38,7 @@ from repro_torch.models.layers import dense_init
 __all__ = [
     "COMPUTE_DTYPE",
     "init_params",
+    "param_shapes",
     "unembed_matrix",
     "forward",
     "loss_fn",
@@ -50,8 +53,16 @@ def init_params(cfg: ModelConfig, generator: torch.Generator) -> dict:
     """fp32 master weights on ``generator.device`` (truncated normal,
     1/√fan_in; the embedding and the vocab-major unembedding scale by
     1/√d_model like the reference's)."""
+    return _init(cfg, generator, generator.device)
+
+
+def param_shapes(cfg: ModelConfig) -> dict[str, tuple[int, ...]]:
+    """Every parameter's name and shape, from an init on the meta device."""
+    return {k: tuple(v.shape) for k, v in _init(cfg, None, torch.device("meta")).items()}
+
+
+def _init(cfg: ModelConfig, generator, device) -> dict:
     require_ported(cfg)
-    device = generator.device
     d, vp = cfg.d_model, cfg.padded_vocab
     p = init_stack(cfg, generator, device)
     p["embed"] = dense_init((vp, d), generator, device, fan=d)
@@ -77,9 +88,9 @@ def forward(params: dict, cfg: ModelConfig, batch: dict):
     """Returns (hidden (B, T, D) post-final-norm in COMPUTE_DTYPE, aux)."""
     require_ported(cfg)
     x = params["embed"][batch["tokens"].long()].to(COMPUTE_DTYPE)
-    x = stack_forward(params, cfg, x, _positions(batch))
+    x, aux = stack_forward(params, cfg, x, _positions(batch))
     x = norm_fn(cfg)(params["final_norm.scale"], x, cfg.norm_eps)
-    return x, torch.zeros((), device=x.device)
+    return x, aux
 
 
 def _ce_chunk(h_c, unembed, y_c, valid_v):

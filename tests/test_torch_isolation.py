@@ -45,7 +45,8 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
         "repro_torch.data, repro_torch.faults, repro_torch.kernels.ce_proxy, "
         "repro_torch.examples.lm_coreset_training, repro_torch.core.engines.sparse, "
         "repro_torch.core.engines.streaming, repro_torch.kernels.topk_sim, "
-        "repro_torch.kernels.pairwise_l2, repro_torch.serve, repro_torch.launch.serve\n"
+        "repro_torch.kernels.pairwise_l2, repro_torch.serve, repro_torch.launch.serve, "
+        "repro_torch.launch.train, repro_torch.models.moe, repro_torch.configs.shapes\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
         "assert not bad, bad\n"
     )

@@ -97,7 +97,7 @@ def test_qwen3_config_is_the_reference():
     require_ported(cfg)
 
 
-@pytest.mark.parametrize("bad", [dict(family="moe", n_experts=4, top_k=2),
+@pytest.mark.parametrize("bad", [dict(frontend="embeddings"),
                                  dict(block_pattern=("rglru", "attn")),
                                  dict(n_codebooks=2)])
 def test_unported_families_raise(bad):
