@@ -63,7 +63,16 @@ version:
      only), every refresh launching ``ce_proxy`` at the config's (D,
      padded V); then a ``launch/train.py --smoke --device cuda``
      subprocess;
- 10. the report: one JSON line per the six kernels, then the last line,
+ 10. slice 8's paths: the ``stochastic`` engine on phase 3's pool through
+     ``CraigSelector`` (F within 1 − 1/e − δ of phase 3's selection per
+     class; class 1 again on the CPU, the same candidates, held under the
+     tie rule), the ``lazy`` engine on phase 3's reduced pool held to the
+     ``matrix`` engine, and ``Trainer.run`` with ``streaming_ingest`` at
+     qwen3-1.7b width on a corpus growing from 128 to 512 docs under a
+     fault plan that fails one refresh attempt: each drain extracts only
+     the new docs (``ce_proxy``) and finalizes through ``fl_replay``, the
+     last install held to the dense finalize;
+ 11. the report: one JSON line per the six kernels, then the last line,
      {"ok": true, "device": {...}}.
 
 Before phases 2–8, ``kernels`` compares ``topk_sim`` (both list routes:
@@ -200,6 +209,13 @@ REPLAY_CHECKS = ((1, 1, 1), (37, 5, 3), (130, 129, 22), (1000, 300, 54), (3000, 
 SVC_BUDGET, SVC_DIM, SVC_DELTAS, SVC_ROWS, SVC_CLUSTERS = 1024, 2048, 16, 4096, 64
 SVC_INSTALL_AT = (4, 8, 12, 16)
 
+# Phase 10, the streaming-ingest trainer at qwen3-1.7b width: the corpus
+# (LM_DOCS docs) is visible from STREAM_FIRST docs and grows by STREAM_GROW
+# after each install; the run ends at the STREAM_DRAINS-th install
+# (budget round(LM_FRACTION × STREAM_FIRST) = 38, 4 coreset steps an
+# epoch: 41 steps), or fails past STREAM_MAX_STEPS.
+STREAM_FIRST, STREAM_GROW, STREAM_DRAINS, STREAM_MAX_STEPS = 128, 128, 4, 60
+
 # Published dense peaks (NVIDIA data sheet, H100 SXM): fp32 on the CUDA
 # cores, bf16 on the tensor cores, and device-memory bandwidth, keyed by
 # the card's name.
@@ -309,6 +325,12 @@ def gain_tol(x, n: int, d_max: float, bf16: bool) -> float:
     return tol
 
 
+def class_positions(np, indices, pool) -> list:
+    """The members of ``indices`` in class ``pool`` as positions in it."""
+    members = set(pool.tolist())
+    return [int(np.searchsorted(pool, i)) for i in indices if int(i) in members]
+
+
 def compare_selections(torch, parity, label, a, b, x, y) -> dict:
     """Hold selection ``a`` (kernel) to ``b`` (plain sweep), class by class,
     under the tie rule of ``repro_torch.parity``: identical indices up to
@@ -320,9 +342,7 @@ def compare_selections(torch, parity, label, a, b, x, y) -> dict:
     diverged = {}
     for c in np.unique(y):
         pool = np.nonzero(y == c)[0]
-        members = set(pool.tolist())
-        ia = [int(np.searchsorted(pool, i)) for i in a.indices if int(i) in members]
-        ib = [int(np.searchsorted(pool, i)) for i in b.indices if int(i) in members]
+        ia, ib = class_positions(np, a.indices, pool), class_positions(np, b.indices, pool)
         xc = x[torch.as_tensor(pool, device=x.device)]
         t = parity.first_divergence(xc, ia, ib, parity.tie_tolerance(xc))
         if t is not None:
@@ -1245,9 +1265,9 @@ def hold_to_dense(torch, sel, result, got, pool, u, version) -> dict:
         raise AssertionError(f"v{version}: the installed update is not the drain's finalize")
     rel = d2_rounding(torch, pool.shape[1])
     st = sel.state()
-    replayed = min(int(st.count[int(torch.argmax(st.fval))]), SVC_BUDGET)
+    replayed = min(int(st.count[int(torch.argmax(st.fval))]), sel.budget)
     out = {"version": version, "n": pool.shape[0], "replayed": replayed,
-           "backfill": SVC_BUDGET - replayed}
+           "backfill": sel.budget - replayed}
     ki, di = got.indices.cpu(), want.indices.cpu()
     med = pool[ki.to(pool.device)].double()
     sqm = float((med * med).sum(dim=1).max())
@@ -1270,11 +1290,7 @@ def hold_to_dense(torch, sel, result, got, pool, u, version) -> dict:
             raise AssertionError(f"v{version}: objectives {ca} and {cb} after a near-tie")
         out.update(indices=f"diverge at backfill pick {t} (near-tie)", max_gain_err=0.0)
         return out
-    near = 0
-    for lo in range(0, pool.shape[0], 8192):
-        xb = pool[lo:lo + 8192].double()
-        two = torch.topk(torch.cdist(xb, med), 2, dim=1, largest=False).values
-        near += int(((two[:, 1] - two[:, 0]) <= tau_d(xb, two[:, 0])).sum())
+    near = near_tie_rows(torch, pool, med)
     dgamma = float((got.weights - want.weights).abs().sum())
     if dgamma > 2 * near:
         raise AssertionError(f"v{version}: Σ|Δγ| = {dgamma} with {near} near-tie rows")
@@ -1283,6 +1299,22 @@ def hold_to_dense(torch, sel, result, got, pool, u, version) -> dict:
                gamma="equal" if dgamma == 0 else f"Σ|Δγ|={dgamma:.0f} ({near} near-tie rows)",
                max_gain_err=gerr)
     return out
+
+
+def near_tie_rows(torch, x, med) -> int:
+    """Rows of ``x`` whose two nearest rows of ``med`` lie, in fp64, within
+    τ_d of each other (``hold_to_dense``): the rows whose medoid fp32
+    rounding may change, each moving 1 of γ from one medoid to another."""
+    rel = d2_rounding(torch, x.shape[1])
+    med = med.double()
+    sqm = float((med * med).sum(dim=1).max())
+    near = 0
+    for lo in range(0, x.shape[0], 8192):
+        xb = x[lo:lo + 8192].double()
+        two = torch.topk(torch.cdist(xb, med), 2, dim=1, largest=False).values
+        tau = rel * ((xb * xb).sum(dim=-1) + sqm) / (2.0 * two[:, 0].clamp(min=1e-3))
+        near += int(((two[:, 1] - two[:, 0]) <= tau).sum())
+    return near
 
 
 def serve_round_trip(card) -> None:
@@ -1314,6 +1346,224 @@ def serve_round_trip(card) -> None:
     log(f"[8] launch/serve.py --coreset --device cuda round trip: 5 requests answered in "
         f"{time.perf_counter() - t0:.1f}s (process start included); coreset v{sel['version']} "
         f"of {sel['n_seen']} rows, Σγ={sum(sel['gamma']):.0f}; {card}")
+
+def stochastic_selection(torch, parity, card, dev, feats, y, exact) -> None:
+    """Phase 10 (a): stochastic greedy on the Ijcnn1-shaped pool of phase 3
+    through ``CraigSelector``, per class, seed 0.  Gates: Σγ = n; F(S) over
+    F(``exact``, phase 3's device-engine selection) ≥ 1 − 1/e − δ on each
+    class; a CPU run of class 1 (same engine, same seed: the same candidate
+    draws) holds the card's indices under the tie rule with each step's
+    sample, and its γ equal but for near-tie rows."""
+    import numpy as np
+
+    from repro_torch.core import engines as E
+    from repro_torch.core.craig import CraigConfig, CraigSelector
+    from repro_torch.core.engines import stochastic
+
+    cfg = CraigConfig(fraction=0.1, engine=E.StochasticConfig(), seed=0)
+    delta = cfg.engine.delta
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    st = CraigSelector(cfg, device=dev).select(feats, y)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if st.per_class_sizes != BUDGETS or float(st.weights.sum()) != N_MAIN:
+        raise AssertionError(f"stochastic: sizes {st.per_class_sizes}, Σγ {st.weights.sum()}")
+    if len(np.unique(st.indices)) != st.size:
+        raise AssertionError("stochastic: duplicate indices")
+    ratios, m = {}, {}
+    for c, n in CLASS_SIZES.items():
+        pool = np.nonzero(y == c)[0]
+        xc = feats[torch.as_tensor(pool, device=dev)]
+        m[c] = stochastic.sample_size(n, BUDGETS[c], delta)
+        d_max = float(E.pairwise_distances(xc).max()) + 1e-6
+        f_st = n * d_max - coverage64(torch, xc, class_positions(np, st.indices, pool))
+        f_ex = n * d_max - coverage64(torch, xc, class_positions(np, exact.indices, pool))
+        ratios[c] = f_st / f_ex
+        if not ratios[c] >= 1.0 - 1.0 / math.e - delta:
+            raise AssertionError(f"stochastic class {c}: F ratio {ratios[c]} < 1 − 1/e − δ")
+    log(f"[10] stochastic greedy (δ {delta}, m {m}) on the Ijcnn1-shaped pool: {st.size} "
+        f"selected in {secs:.3f}s (phase 3's device engine: see [3]); Σγ={st.weights.sum():.0f}; "
+        f"F(stochastic)/F(device engine) per class {ratios} (gate ≥ {1 - 1 / math.e - delta:.4f}); "
+        f"max_memory_allocated {peak_gb:.2f} GB; {card}")
+
+    # class 1 again on the CPU: the same candidates, drawn on the host
+    pool = np.nonzero(y == 1)[0]
+    x1 = feats[torch.as_tensor(pool, device=dev)]
+    t0 = time.perf_counter()
+    cpu = CraigSelector(dataclasses.replace(cfg, per_class=False), device="cpu").select(x1.cpu())
+    cpu_s = time.perf_counter() - t0
+    on_card = class_positions(np, st.indices, pool)
+    w_card = st.weights[np.isin(st.indices, pool)]
+    cands = stochastic.draw_candidates(0, BUDGETS[1], CLASS_SIZES[1], m[1])
+    t = parity.first_divergence(x1, cpu.indices, on_card, parity.tie_tolerance(x1),
+                                candidates=cands)
+    if t is None:
+        med = x1[torch.as_tensor(on_card, device=dev)]
+        near = near_tie_rows(torch, x1, med)
+        dgamma = float(np.abs(cpu.weights - w_card).sum())
+        if dgamma > 2 * near:
+            raise AssertionError(f"stochastic class 1: Σ|Δγ| = {dgamma} with {near} near-tie rows")
+        verdict_ = f"identical indices; Σ|Δγ| {dgamma:.0f} ({near} near-tie rows)"
+    else:
+        ca, cb = coverage64(torch, x1, cpu.indices), coverage64(torch, x1, on_card)
+        if abs(ca - cb) > 1e-3 * max(ca, cb):
+            raise AssertionError(f"stochastic class 1: objectives {ca} and {cb} after a near-tie")
+        verdict_ = f"near-tie divergence at {t} (tie rule), fp64 L(S) {ca:.4f} vs {cb:.4f}"
+    log(f"[10] stochastic class 1 on the CPU ({cpu_s:.3f}s, the host's cores) against the "
+        f"card: {verdict_}")
+
+
+def lazy_selection(torch, parity, card, dev, xr, yr) -> None:
+    """Phase 10 (b): lazy greedy (host heap over the float64 similarities)
+    on phase 3's reduced pool, held to the matrix engine on the card."""
+    from repro_torch.core import engines as E
+    from repro_torch.core.craig import CraigConfig, CraigSelector
+
+    out = {}
+    for label, eng in (("lazy", E.LazyConfig()), ("matrix", E.MatrixConfig())):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out[label] = CraigSelector(CraigConfig(fraction=0.1, engine=eng), device=dev).select(xr, yr)
+        torch.cuda.synchronize()
+        out[label + "_s"] = time.perf_counter() - t0
+    diverged = compare_selections(torch, parity, "lazy", out["lazy"], out["matrix"], xr, yr)
+    sizes = out["lazy"].per_class_sizes
+    log(f"[10] lazy greedy on the reduced pool {N_REDUCED} (classes {sizes}, host float64 "
+        f"matrices of 8·n² bytes): {out['lazy_s']:.3f}s, matrix engine {out['matrix_s']:.3f}s; "
+        f"{verdict(diverged)}; {card}")
+
+
+class GrowingStream:
+    """A corpus that grows: ``n_docs`` exposes a prefix of ``inner``,
+    extended by :meth:`grow` (as the reference's
+    tests/test_trainer_integration.py defines it; neither package has one)."""
+
+    def __init__(self, inner, visible):
+        self._inner = inner
+        self.n_docs = int(visible)
+
+    def batch(self, idx):
+        return self._inner.batch(idx)
+
+    def grow(self, n):
+        self.n_docs = min(self._inner.n_docs, self.n_docs + int(n))
+
+
+def streaming_lm_training(torch, ops, card, dev) -> dict:
+    """Phase 10 (c): ``Trainer.run`` with ``streaming_ingest=True`` at
+    qwen3-1.7b width on a corpus that grows, asynchronous refresh, with a
+    fault plan that fails the second refresh attempt once (healed by one
+    retry).  Counts are zeroed just before the run and read just after.
+    Each drain extracts the new docs only (``ce_proxy``) and finalizes
+    through ``fl_replay``; the last install is held to the dense finalize.
+    Returns the run's launches."""
+    import types
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.craig import CraigConfig
+    from repro_torch.data import TokenStream
+    from repro_torch.faults import FailurePolicy, FaultPlan, FaultSpec, injected
+    from repro_torch.models import init_params
+    from repro_torch.optim import adamw, warmup_cosine
+    from repro_torch.train import Trainer, TrainerConfig
+
+    cfg = get_config(LM_ARCH)
+    ds = GrowingStream(TokenStream(n_docs=LM_DOCS, seq_len=LM_SEQ, vocab_size=cfg.vocab_size),
+                       STREAM_FIRST)
+    tcfg = TrainerConfig(
+        batch_size=LM_BATCH, select_every_epochs=1, refresh_mode="async",
+        craig=CraigConfig(fraction=LM_FRACTION, per_class=False), streaming_ingest=True,
+        refresh_failure_policy=FailurePolicy(max_retries=1, backoff_base_s=0.0),
+    )
+    budget = round(LM_FRACTION * STREAM_FIRST)
+    plan = FaultPlan([FaultSpec("refresh.worker", "raise", on_calls=(2,))])
+    gen = torch.Generator(device=dev).manual_seed(0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    trainer = Trainer(cfg, tcfg, ds, adamw(warmup_cosine(3e-4, 10, LM_STEPS)),
+                      lambda: init_params(cfg, gen), device=dev)
+    finals, installed = [], []
+    torch.cuda.synchronize()
+    for k in ops.LAUNCHES:
+        ops.LAUNCHES[k] = 0
+    t0 = time.perf_counter()
+    with injected(plan):
+        for _ in range(STREAM_MAX_STEPS):
+            trainer.run(1)
+            events = [m for m in trainer.metrics_log if m["event"] == "craig_refresh"]
+            if len(events) == len(installed):
+                continue
+            installed.append((events[-1], trainer.sampler._indices.copy(),
+                              trainer.sampler._weights.copy(), trainer._stream_cursor))
+            if len(installed) == 1:  # keep each later drain's own finalize
+                sel, result = trainer._stream_sel, trainer._stream_sel.result
+                sel.result = lambda pool: finals.append(result(pool)) or finals[-1]
+            if len(installed) == STREAM_DRAINS:
+                break
+            ds.grow(STREAM_GROW)
+    trainer.refresher.wait()
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    sel.result = result
+
+    steps = [m for m in trainer.metrics_log if m["event"] == "step"]
+    losses = [m["loss"] for m in steps]
+    if len(installed) != STREAM_DRAINS:
+        raise AssertionError(f"streaming: {len(installed)} installs in {len(steps)} steps")
+    if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"streaming: losses {losses}")
+    if [m for m in trainer.metrics_log if m["event"] == "craig_refresh_failed"]:
+        raise AssertionError("streaming: a refresh failed")
+    if (trainer._stream_cursor, sel.n_seen) != (LM_DOCS, LM_DOCS):
+        raise AssertionError(f"streaming: cursor {trainer._stream_cursor}, n_seen {sel.n_seen}")
+    pool_batches = STREAM_GROW // LM_BATCH
+    if launches["ce_proxy"] != STREAM_DRAINS * pool_batches:
+        raise AssertionError(f"streaming: ce_proxy launched {launches}; expected "
+                             f"{pool_batches} per drain × {STREAM_DRAINS}")
+    if launches["fl_replay"] < STREAM_DRAINS:
+        raise AssertionError(f"streaming: fl_replay launched {launches}")
+    if plan.calls("refresh.worker") != STREAM_DRAINS + 1:
+        raise AssertionError(f"streaming: refresh.worker calls {plan.calls('refresh.worker')}")
+    for ev, idx, w, cursor in installed:
+        if not (len(idx) == budget == len(np.unique(idx)) and idx.max() < cursor
+                and abs(float(np.sum(w, dtype=np.float64)) - ev["n_live"]) < 1e-3):
+            raise AssertionError(f"streaming v{ev['version']}: {len(idx)} docs (max "
+                                 f"{idx.max()}, cursor {cursor}), Σγ {w.sum()}, {ev}")
+    pool, doc_ids = trainer._stream_pool, trainer._stream_doc_ids
+    if not pool.shape[0] == sel.n_rows == doc_ids.shape[0]:
+        raise AssertionError(f"streaming: pool {tuple(pool.shape)}, n_rows {sel.n_rows}, "
+                             f"doc ids {doc_ids.shape}")
+    got = finals[-1]
+    _, idx, w, _ = installed[-1]
+    order = np.argsort(doc_ids[got.indices.cpu().numpy()])
+    if not (np.array_equal(idx, doc_ids[got.indices.cpu().numpy()][order])
+            and np.array_equal(w, got.weights.cpu().numpy()[order])):
+        raise AssertionError("streaming: the last install is not the last drain's finalize")
+    u = types.SimpleNamespace(indices=got.indices.cpu(), weights=got.weights.cpu())
+    held = hold_to_dense(torch, sel, result, got, pool, u, installed[-1][0]["version"])
+    per = [(ev["version"], ev["n_seen"], ev["n_live"], round(ev["extract_time_s"], 3),
+            round(ev["ingest_time_s"], 3), round(1e3 * ev["finalize_time_s"], 2),
+            round(ev["install_stall_s"], 3)) for ev, *_ in installed]
+    step_s = statistics.median(m["time_s"] for m in steps[2:])
+    log(f"[10] streaming ingest: {cfg.name} Trainer.run, streaming_ingest, refresh_mode="
+        f"'async': {len(steps)} steps in {total_s:.1f}s (median {step_s:.4f} s/step); corpus "
+        f"{STREAM_FIRST} → {LM_DOCS} docs by {STREAM_GROW}; loss {losses[0]:.4f} → "
+        f"{losses[-1]:.4f}; {STREAM_DRAINS} drains of {STREAM_GROW} docs, budget {budget}; "
+        f"refresh.worker calls {plan.calls('refresh.worker')} (call 2 failed, retried); "
+        f"launches {launches}; max_memory_allocated {peak_gb:.2f} GB; {card}")
+    log(f"[10] streaming per drain (version, n_seen, live rows, extract s, ingest s, finalize "
+        f"ms, install stall s): {per}; last install held to the dense finalize: {held}")
+    del trainer, pool, finals
+    torch.cuda.empty_cache()
+    return {"ce_proxy": launches["ce_proxy"], "fl_replay": launches["fl_replay"]}
+
 
 def main() -> None:
     import torch
@@ -1603,7 +1853,16 @@ def main() -> None:
     wide = wide_lm_training(torch, ops, card, dev)
     results["ce_proxy"]["launches"] += sum(r["launches"] for r in wide.values())
 
-    # -- 10. report ---------------------------------------------------------
+    # -- 10. the lazy and stochastic engines; the streaming-ingest trainer ---
+    t0 = time.perf_counter()
+    stochastic_selection(torch, parity, card, dev, feats, y, cs)
+    lazy_selection(torch, parity, card, dev, xr, yr)
+    streamed = streaming_lm_training(torch, ops, card, dev)
+    for kname, n in streamed.items():
+        results[kname]["launches"] += n
+    log(f"[10] phase total {time.perf_counter() - t0:.1f}s")
+
+    # -- 11. report ---------------------------------------------------------
     replaces = {
         "fl_gains": "src/repro/kernels/fl_gains.py:106",
         "fl_gains_argmax": "src/repro/kernels/fl_gains.py:197",
@@ -1632,8 +1891,8 @@ def main() -> None:
         })
     if any(k["launches"] < 1 for k in kernels):
         raise AssertionError(f"a kernel of the path was never launched: {kernels}")
-    log(f"[10] ce_proxy fp32 at the main-path shape: {results['ce_proxy']['fp32']}")
-    log(f"[10] total {time.perf_counter() - t_start:.1f}s")
+    log(f"[11] ce_proxy fp32 at the main-path shape: {results['ce_proxy']['fp32']}")
+    log(f"[11] total {time.perf_counter() - t_start:.1f}s")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -17,7 +17,8 @@ format (the reference's ``.npy`` directories are not read)::
 * Keep-N garbage collection of older steps.
 * A tree is nested dicts, lists and tuples (NamedTuples included) of
   tensors and Python numbers; ``restore`` rebuilds the template's
-  structure with each tensor on the template leaf's device and dtype.
+  structure with each tensor on the template leaf's device and dtype (a
+  ``None`` leaf takes the saved tensor as it was written, on the CPU).
 * Extras (JSON) carry the data-pipeline cursor and the active coreset, so
   a restart resumes the exact stream.
 """
@@ -60,6 +61,8 @@ def unflatten(template: Any, flat: dict[str, Any], prefix: str = "") -> Any:
             return type(template)(*vals)
         return type(template)(vals)
     value = flat[prefix or "leaf"]
+    if template is None:
+        return value
     if isinstance(template, torch.Tensor):
         return value.to(device=template.device, dtype=template.dtype)
     return type(template)(value.item())
@@ -147,12 +150,21 @@ class CheckpointManager:
             return None
         return int(name.split("_")[1])
 
-    def restore(self, template: Any, step: int | None = None) -> tuple[Any, dict]:
-        """Restore into ``template``'s structure → (tree, extras)."""
+    def _step_dir(self, step: int | None) -> str:
         step = self.latest_step() if step is None else step
         if step is None:
             raise FileNotFoundError(f"no checkpoint under {self.root}")
-        d = os.path.join(self.root, f"step_{step:08d}")
+        return os.path.join(self.root, f"step_{step:08d}")
+
+    def extras(self, step: int | None = None) -> dict:
+        """The JSON extras of a checkpoint (the latest by default), without
+        loading its tensors: what a caller needs to build its template."""
+        with open(os.path.join(self._step_dir(step), "manifest.json")) as f:
+            return json.load(f).get("extras", {})
+
+    def restore(self, template: Any, step: int | None = None) -> tuple[Any, dict]:
+        """Restore into ``template``'s structure → (tree, extras)."""
+        d = self._step_dir(step)
         with open(os.path.join(d, "manifest.json")) as f:
             manifest = json.load(f)
         flat = torch.load(os.path.join(d, "tensors.pt"), map_location="cpu",

@@ -14,6 +14,7 @@ import torch
 from repro_torch._device import resolve_device
 from repro_torch.core.craig import CoresetSelection
 from repro_torch.core.engines import EngineConfig, engine_config_from_dict
+from repro_torch.core.engines.legacy import IMPL_FROM_REFERENCE
 
 __all__ = [
     "IMPL_FROM_REFERENCE",
@@ -24,12 +25,6 @@ __all__ = [
     "model_params_from_reference",
 ]
 
-# The reference's kernel routes (``FeaturesConfig.gains_impl``,
-# ``SparseConfig.impl``, ``StreamingConfig.finalize_impl``) and their
-# counterparts here.  The port's own names map to themselves, so a state
-# dict the port wrote loads through the same function.
-IMPL_FROM_REFERENCE = {"jax": "torch", "pallas": "cuda", "auto": "auto", "dense": "dense",
-                       "torch": "torch", "cuda": "cuda"}
 # The reference's select-step proxy heads (``make_select_step(proxy_impl)``).
 PROXY_IMPL_FROM_REFERENCE = {"pallas": "cuda", "einsum": "einsum", "auto": "auto"}
 

@@ -4,9 +4,9 @@ Port of ``repro.core.craig``: proxy features → greedy facility location →
 (indices, γ weights, ε estimate).  The greedy maximizer is a pluggable
 ``SelectionEngine`` named by ``CraigConfig.engine``: ``'auto'`` (the
 policy in ``engines.auto_engine_config``, keyed on the selector's device)
-or a typed ``EngineConfig``.  The reference's legacy engine strings and
-flat knobs are not ported (ROADMAP.md queue 1); a string other than
-``'auto'`` raises.
+a typed ``EngineConfig``, or a deprecated legacy string with the flat
+knobs ``CraigConfig`` inherits, which ``engines.legacy`` maps onto the
+typed config with a ``DeprecationWarning``.
 
 The selector runs on its ``device`` — the card unless the caller asks for
 the CPU.  Host inputs are moved there; only the (n,) finite mask and the
@@ -27,11 +27,9 @@ from repro_torch.core.engines import (
     auto_engine_config,
     make_engine,
 )
+from repro_torch.core.engines.legacy import LegacyEngineKnobs, resolve_engine_config
 
 __all__ = ["CraigConfig", "CoresetSelection", "CraigSelector", "_apportion_budgets"]
-
-_LEGACY_ITEM = "ROADMAP.md queue 1, 'legacy engine strings and the façade'"
-
 
 def _apportion_budgets(counts: np.ndarray, total_budget: int) -> np.ndarray:
     """Largest-remainder apportionment of ``total_budget`` across classes.
@@ -63,7 +61,7 @@ def _apportion_budgets(counts: np.ndarray, total_budget: int) -> np.ndarray:
 
 
 @dataclasses.dataclass(frozen=True, kw_only=True)
-class CraigConfig:
+class CraigConfig(LegacyEngineKnobs):
     """Configuration for CRAIG subset selection.
 
     Attributes:
@@ -72,10 +70,13 @@ class CraigConfig:
       fraction: subset fraction r/n for 'budget' mode.
       epsilon: target coverage for 'cover' mode (same units as d_ij).
       metric: 'l2' (the paper's) or 'cosine'.
-      engine: ``'auto'`` (default) or a typed ``EngineConfig``
-        (``MatrixConfig()``, ``FeaturesConfig(...)``, ``DeviceConfig(...)``).
+      engine: ``'auto'`` (default), a typed ``EngineConfig``
+        (``MatrixConfig()``, ``DeviceConfig(...)``, ``StochasticConfig(...)``),
+        or a deprecated legacy string ``'matrix'|'lazy'|'stochastic'|
+        'features'|'sparse'|'device'`` mapped with the flat knobs inherited
+        from ``LegacyEngineKnobs`` (a ``DeprecationWarning``).
       per_class: stratified per-class selection (paper §5).
-      seed: seed threaded to stochastic engines (none ported yet).
+      seed: seed of the stochastic engine's candidate draws.
       validate_features: 'raise' | 'drop' | 'off' NaN/Inf guard.
     """
 
@@ -127,20 +128,13 @@ class CraigSelector:
 
     # -- public API ---------------------------------------------------------
 
-    def resolve_engine(self, n: int) -> EngineConfig:
-        """The typed engine config a greedy run over ``n`` points uses."""
-        engine = self.config.engine
-        if isinstance(engine, EngineConfig):
-            return engine
-        if engine == "auto":
-            return auto_engine_config(
-                n, backend=self.device.type, mode=self.config.mode
-            )
-        raise ValueError(
-            f"CraigConfig.engine={engine!r}: legacy engine strings are not "
-            f"ported to repro_torch ({_LEGACY_ITEM}); pass 'auto' or a typed "
-            "config such as repro_torch.core.engines.DeviceConfig()"
-        )
+    def resolve_engine(self, n: int, *, _stacklevel: int = 2) -> EngineConfig:
+        """The typed engine config a greedy run over ``n`` points uses
+        (``_stacklevel`` points a legacy-string warning at the caller)."""
+        typed = resolve_engine_config(self.config, _stacklevel=_stacklevel + 1)
+        if typed is None:
+            typed = auto_engine_config(n, backend=self.device.type, mode=self.config.mode)
+        return typed
 
     def select(
         self,
@@ -167,7 +161,7 @@ class CraigSelector:
             # engine='auto' keys on the pool one greedy run sweeps — here
             # the largest class
             counts = np.unique(labels, return_counts=True)[1]
-            engine_cfg = self.resolve_engine(int(counts.max()))
+            engine_cfg = self.resolve_engine(int(counts.max()), _stacklevel=3)
             sel = self._select_per_class(feats, labels, init, engine_cfg)
         else:
             if cfg.per_class:
@@ -178,7 +172,7 @@ class CraigSelector:
                     UserWarning,
                     stacklevel=2,
                 )
-            engine_cfg = self.resolve_engine(n)
+            engine_cfg = self.resolve_engine(n, _stacklevel=3)
             idx, w, _, coverage = self._select_flat(
                 feats, self._budget(n), init, engine_cfg
             )

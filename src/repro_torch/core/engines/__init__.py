@@ -1,10 +1,10 @@
 """Greedy facility-location engines behind the SelectionEngine registry.
 
 Port of ``repro.core.engines``: the shared protocol (``base``), the
-registry with the ``engine='auto'`` policy (``registry``), and the engines
-ported so far — matrix, features, device, sparse and streaming.  The lazy,
-stochastic and tree engines and the legacy flat-knob shims are not ported
-yet (ROADMAP.md queue 1); naming one raises.
+registry with the ``engine='auto'`` policy (``registry``), the engines —
+matrix, lazy, stochastic, features, device, sparse and streaming — and the
+legacy flat-knob shim (``legacy``).  The tree engine is not ported yet
+(ROADMAP.md queue 1); naming it raises.
 """
 from repro_torch.core.engines.base import (
     Capabilities,
@@ -14,6 +14,7 @@ from repro_torch.core.engines.base import (
     assign_and_weights,
     cosine_residual_coverage,
     coverage_l,
+    facility_location_value,
     normalize_for_metric,
     pairwise_distances,
 )
@@ -29,6 +30,12 @@ from repro_torch.core.engines.registry import (
 
 # Engine modules self-register on import; matrix first.
 from repro_torch.core.engines.matrix import MatrixConfig, MatrixEngine, greedy_fl_matrix
+from repro_torch.core.engines.lazy import LazyConfig, LazyEngine, lazy_greedy_fl
+from repro_torch.core.engines.stochastic import (
+    StochasticConfig,
+    StochasticEngine,
+    stochastic_greedy_fl,
+)
 from repro_torch.core.engines.features import (
     FeaturesConfig,
     FeaturesEngine,
@@ -68,6 +75,8 @@ __all__ = [
     "parse_engine_spec",
     "auto_engine_config",
     "MatrixConfig", "MatrixEngine",
+    "LazyConfig", "LazyEngine",
+    "StochasticConfig", "StochasticEngine",
     "FeaturesConfig", "FeaturesEngine",
     "DeviceConfig", "DeviceEngine",
     "SparseConfig", "SparseEngine",
@@ -76,8 +85,11 @@ __all__ = [
     "normalize_for_metric",
     "cosine_residual_coverage",
     "coverage_l",
+    "facility_location_value",
     "assign_and_weights",
     "greedy_fl_matrix",
+    "lazy_greedy_fl",
+    "stochastic_greedy_fl",
     "greedy_fl_features",
     "greedy_fl_device",
     "topk_graph",

@@ -29,6 +29,7 @@ __all__ = [
     "pairwise_distances",
     "normalize_for_metric",
     "cosine_residual_coverage",
+    "facility_location_value",
     "coverage_l",
     "assign_and_weights",
 ]
@@ -183,6 +184,19 @@ def cosine_residual_coverage(
         min=0.0,
     )
     return torch.sum(torch.min(d2, dim=1).values) / 2.0
+
+
+def facility_location_value(sim: torch.Tensor, selected_mask: torch.Tensor) -> torch.Tensor:
+    """F(S) = Σ_i max_{j∈S} s_ij with the empty-set convention F(∅) = 0
+    (an empty row maximum is −inf, clamped to 0).
+
+    Args:
+      sim: (n, n) similarities (s_ij ≥ 0; the s0 baseline already subtracted).
+      selected_mask: (n,) bool.
+    """
+    neg = torch.tensor(float("-inf"), dtype=sim.dtype, device=sim.device)
+    best = torch.max(torch.where(selected_mask[None, :], sim, neg), dim=1).values
+    return torch.sum(torch.clamp(best, min=0.0))
 
 
 def coverage_l(dist: torch.Tensor, indices: torch.Tensor) -> torch.Tensor:

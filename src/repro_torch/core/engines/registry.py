@@ -31,8 +31,6 @@ _REGISTRY: dict[str, type[SelectionEngine]] = {}
 # Engines of the reference that this package does not have yet, with the
 # ROADMAP item that ports them.
 NOT_PORTED = {
-    "lazy": "ROADMAP.md queue 1, 'lazy and stochastic engines'",
-    "stochastic": "ROADMAP.md queue 1, 'lazy and stochastic engines'",
     "tree": "ROADMAP.md queue 1, 'select_distributed and select_tree'",
 }
 

@@ -569,9 +569,14 @@ def _state_to_dict(state: StreamingState) -> dict:
 
 
 def _state_from_dict(d: dict, device: torch.device) -> StreamingState:
+    """Inverse of ``_state_to_dict``; also takes the fields as tensors
+    (``StreamingSelector.state_dict(tensors=True)``)."""
     kw = {}
     for name in StreamingState._fields:
         spec = d[name]
+        if isinstance(spec, torch.Tensor):
+            kw[name] = spec.to(device)
+            continue
         arr = np.asarray(spec["data"], _STATE_DTYPES[name]).reshape(spec["shape"])
         kw[name] = torch.from_numpy(arr).to(device)
     return StreamingState(**kw)
@@ -845,9 +850,11 @@ class StreamingSelector:
 
     # -- serialization -------------------------------------------------------
 
-    def state_dict(self) -> dict:
+    def state_dict(self, tensors: bool = False) -> dict:
         """JSON-able full snapshot (config + per-class sieve states + the
-        eviction remap), in the reference's format."""
+        eviction remap), in the reference's format.  With ``tensors`` each
+        sieve state stays a dict of its tensors (for a checkpoint's tensor
+        tree: the L·k·d picked features are too many for JSON lists)."""
         return {
             "budget": self.budget,
             "dim": self.dim,
@@ -859,7 +866,8 @@ class StreamingSelector:
             "live": self._live.tolist(),
             "class_seen": {str(key): int(v) for key, v in self._class_seen.items()},
             "config": self.config.to_dict(),
-            "states": {str(key): _state_to_dict(st) for key, st in self._states.items()},
+            "states": {str(key): st._asdict() if tensors else _state_to_dict(st)
+                       for key, st in self._states.items()},
             "rows": {str(key): list(rows) for key, rows in self._rows.items()},
         }
 

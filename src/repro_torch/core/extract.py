@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from repro_torch.data.pipeline import Prefetcher, to_device
+from repro_torch.faults import fault_value
 
 __all__ = ["ProxyExtractor"]
 
@@ -113,4 +114,7 @@ class ProxyExtractor:
         else:
             for lo, m in plan:
                 outs.extend(self._run(params, self._assemble(pool_idx, lo, m), device))
-        return torch.cat(outs, dim=0)[:n_pool]
+        feats = torch.cat(outs, dim=0)[:n_pool]
+        # lets tests corrupt extracted features (kind='nan') to exercise
+        # the selector's validate_features guard
+        return fault_value("extract.features", feats, n_pool=n_pool)

@@ -41,7 +41,7 @@ from typing import Any, Callable, Literal
 import numpy as np
 import torch
 
-from repro_torch.faults import FailurePolicy
+from repro_torch.faults import FailurePolicy, fault_point
 
 __all__ = ["AsyncRefresher", "RefreshResult", "snapshot", "weak_callback"]
 
@@ -249,6 +249,8 @@ class AsyncRefresher:
         for attempt in range(policy.max_retries + 1):
             attempts += 1
             try:
+                # inside the retry loop: max_retries heals an injected fault
+                fault_point("refresh.worker", version=version, attempt=attempt)
                 value = fn()
             except BaseException as e:  # noqa: BLE001 — routed via policy
                 error = e

@@ -1,4 +1,40 @@
-"""Supervision of background work (port of ``repro.faults``: the policy)."""
+"""Fault injection and failure policy (port of ``repro.faults``).
+
+A deterministic, seedable fault-injection registry (:class:`FaultPlan`,
+consulted by the :func:`fault_point`/:func:`fault_value` hooks at the
+refresh worker, feature extraction and the coreset service's ingest) plus
+the :class:`FailurePolicy` record that ``AsyncRefresher``, the trainer and
+the coreset service interpret when real work fails.
+"""
+from repro_torch.faults.plan import (
+    ENV_VAR,
+    FAULT_KINDS,
+    FaultInjected,
+    FaultPlan,
+    FaultSpec,
+    active_plan,
+    clear,
+    fault_point,
+    fault_value,
+    injected,
+    install,
+    install_from_env,
+)
 from repro_torch.faults.policy import EXHAUSTION_MODES, FailurePolicy
 
-__all__ = ["EXHAUSTION_MODES", "FailurePolicy"]
+__all__ = [
+    "ENV_VAR",
+    "EXHAUSTION_MODES",
+    "FAULT_KINDS",
+    "FailurePolicy",
+    "FaultInjected",
+    "FaultPlan",
+    "FaultSpec",
+    "active_plan",
+    "clear",
+    "fault_point",
+    "fault_value",
+    "injected",
+    "install",
+    "install_from_env",
+]

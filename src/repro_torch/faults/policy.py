@@ -1,9 +1,7 @@
 """Failure policy for supervised background work.
 
 Port of ``repro.faults.policy`` (``FailurePolicy``), a copy of the
-reference's.  The fault-injection hooks (``fault_point``,
-``fault_value``, ``faults/plan.py``) are not ported yet (ROADMAP.md
-queue 1, slice 4), so the port's call sites carry none.
+reference's.
 
 One :class:`FailurePolicy` record answers the three questions every
 supervised job runner needs answered up front: *how many times to retry*,

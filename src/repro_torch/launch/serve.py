@@ -14,7 +14,9 @@ per stdin line, one JSON response per stdout line:
     {"op": "quit"}   -> {"ok": true, "bye": true}
     anything invalid -> {"ok": false, "error": "..."}   (service keeps running)
 
-The service runs on ``--device`` (default ``cuda``).  Decode mode
+The service runs on ``--device`` (default ``cuda``).  A fault plan in
+``$REPRO_FAULT_PLAN`` (``repro_torch.faults``, JSON) is installed at
+start-up.  Decode mode
 (``--arch``) is not ported yet and raises.
 """
 from __future__ import annotations
@@ -24,7 +26,7 @@ import json
 import sys
 
 from repro_torch.core.engines import StreamingConfig
-from repro_torch.faults import FailurePolicy
+from repro_torch.faults import FailurePolicy, install_from_env
 from repro_torch.serve import CoresetService
 
 _DECODE_ITEM = "ROADMAP.md queue 1, 'Prefill and decode'"
@@ -33,6 +35,7 @@ _DECODE_ITEM = "ROADMAP.md queue 1, 'Prefill and decode'"
 def _serve_coreset(args, stdin=None, stdout=None) -> None:
     """JSON-lines loop over a CoresetService (sync mode: the response to a
     delta is written once its drain has published)."""
+    install_from_env()  # a parent arms the service through $REPRO_FAULT_PLAN
     stdin = sys.stdin if stdin is None else stdin
     stdout = sys.stdout if stdout is None else stdout
     svc = CoresetService(

@@ -10,6 +10,10 @@ the tests and ``chip_smoke.py`` hold both packages to:
   * at a divergence, the two picks' gains given the common prefix,
     recomputed in fp64, must both lie within ``tol`` of the fp64 best;
   * past it the runs are compared by objective value, not by index.
+
+Stochastic greedy is held to the same rule with its step samples: each
+pick is the best of its own step's candidates, so the best is taken over
+that sample.
 """
 from __future__ import annotations
 
@@ -52,11 +56,13 @@ def coverage64(x: torch.Tensor, indices) -> float:
     return float(_dist64(x)[:, idx].min(dim=1).values.sum())
 
 
-def first_divergence(x: torch.Tensor, idx_a, idx_b, tol: float):
+def first_divergence(x: torch.Tensor, idx_a, idx_b, tol: float, candidates=None):
     """Position of the first index divergence, or None when equal.
 
     Raises AssertionError when the two picks at the divergence are not a
     near-tie (either is more than ``tol`` below the fp64 best gain).
+    ``candidates`` (stochastic greedy): row t is the sample drawn for
+    position t, and the best gain is taken over it.
     """
     a = [int(i) for i in idx_a]
     b = [int(i) for i in idx_b]
@@ -66,7 +72,9 @@ def first_divergence(x: torch.Tensor, idx_a, idx_b, tol: float):
     if t is None:
         return None
     g = fp64_gains(x, a[:t])
-    best = float(g.max())
+    pool = g if candidates is None else g[
+        torch.as_tensor(candidates[t], dtype=torch.int64, device=g.device)]
+    best = float(pool.max())
     ga, gb = float(g[a[t]]), float(g[b[t]])
     if best - ga > tol or best - gb > tol:
         raise AssertionError(

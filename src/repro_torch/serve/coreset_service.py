@@ -13,9 +13,8 @@ Port of ``repro.serve.coreset_service``.  A ``CoresetService`` owns
     selection, :meth:`CoresetService.coreset` installs it at the caller's
     boundary.
 
-``launch/serve.py --coreset`` wraps this in a JSON-lines protocol.  The
-fault hooks of the reference (``fault_point``) are not ported yet
-(ROADMAP.md queue 1, item 12).
+``launch/serve.py --coreset`` wraps this in a JSON-lines protocol.  Each
+drain passes the ``service.ingest`` fault hook first.
 """
 from __future__ import annotations
 
@@ -29,7 +28,7 @@ import torch
 from repro_torch._device import resolve_device
 from repro_torch.core.engines.streaming import StreamingConfig, StreamingSelector
 from repro_torch.core.refresh import AsyncRefresher, RefreshResult, weak_callback
-from repro_torch.faults import FailurePolicy
+from repro_torch.faults import FailurePolicy, fault_point
 
 __all__ = ["CoresetService", "CoresetUpdate"]
 
@@ -164,6 +163,7 @@ class CoresetService:
         """One coalesced drain: ingest every queued delta, evict dead rows
         if asked, finalize once.  Transactional: the selector and the pool
         return to their pre-drain state on any failure."""
+        fault_point("service.ingest", n_deltas=len(deltas))
         snap = self.selector.snapshot()
         pool_snap = self._pool
         try:

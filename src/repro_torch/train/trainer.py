@@ -15,16 +15,23 @@ device.  Responsibilities, as in the reference:
 * per-class stratification by ``dataset.class_labels`` when
   ``craig.per_class``;
 * γ-weighted training between refreshes (the weights ride in the batch);
+* streaming ingest (``streaming_ingest=True``) for corpora that grow:
+  each refresh boundary queues only the documents appended since the last
+  one through ``AsyncRefresher.ingest``; a drain extracts their proxies,
+  feeds them to a ``StreamingSelector`` (sieve streaming, O(Δn·k) a
+  delta), evicts pool rows no sieve references (``streaming_evict``) and
+  finalizes, instead of re-extracting the whole pool;
 * checkpoint/restart of params, optimizer state, sampler cursor, installed
-  and staged coresets and the warm-start seed (``restore_or_init``);
+  and staged coresets, the warm-start seed and the streaming state
+  (``restore_or_init``);
 * preemption: SIGTERM (or ``request_preempt``) saves at the next step
   boundary and stops;
 * a per-step wall-clock watchdog that records stragglers.
 
-Streaming ingest (``streaming_ingest=True``) is not ported yet (ROADMAP.md
-queue 1, slice 3) and raises.  Each refresh's metadata also records the
-extraction and selection seconds separately (``extract_time_s``,
-``selection_time_s``; on a card both end in a device synchronise).
+Each refresh's metadata also records the extraction and selection seconds
+separately (``extract_time_s``, ``selection_time_s``; a streaming drain
+``extract_time_s``, ``ingest_time_s`` and ``finalize_time_s``; on a card
+each ends in a device synchronise).
 """
 from __future__ import annotations
 
@@ -40,8 +47,9 @@ import torch
 from repro_torch._device import resolve_device
 from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.core.craig import CoresetSelection, CraigConfig, CraigSelector
+from repro_torch.core.engines.streaming import StreamingSelector, StreamingState
 from repro_torch.core.extract import ProxyExtractor
-from repro_torch.core.refresh import AsyncRefresher, RefreshResult, weak_callback
+from repro_torch.core.refresh import AsyncRefresher, RefreshResult, snapshot, weak_callback
 from repro_torch.data.pipeline import CoresetSampler, to_device
 from repro_torch.faults import FailurePolicy
 from repro_torch.models import loss_fn as model_loss_fn
@@ -68,7 +76,11 @@ class TrainerConfig:
     extract_prefetch: bool = True  # assemble the next megabatch meanwhile
     refresh_mode: Literal["sync", "async"] = "async"
     warm_start_fraction: float = 0.5  # share of the budget warm-started
-    streaming_ingest: bool = False  # not ported (raises)
+    streaming_ingest: bool = False  # grow-only corpora: ingest the docs
+    # appended since the last boundary (budget fixed at craig.fraction × the
+    # first delta) instead of re-extracting the pool every refresh
+    streaming_evict: bool = True  # drop pool rows no sieve references after
+    # every drain (O(L·k·d) pool instead of O(n·d))
     checkpoint_every: int = 50
     checkpoint_dir: str | None = None
     keep_checkpoints: int = 3
@@ -81,6 +93,10 @@ class TrainerConfig:
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+# refresh metadata a streaming drain adds to its craig_refresh event
+_STREAM_META = ("n_seen", "n_live", "ingest_time_s", "finalize_time_s")
 
 
 class Trainer:
@@ -98,11 +114,6 @@ class Trainer:
         eval_dataset=None,
         device: str | torch.device = "cuda",
     ):
-        if tcfg.streaming_ingest:
-            raise NotImplementedError(
-                "streaming_ingest is not ported to repro_torch "
-                "(ROADMAP.md queue 1, slice 3 'Streaming')"
-            )
         self.cfg = cfg
         self.tcfg = tcfg
         self.device = resolve_device(device)
@@ -132,13 +143,22 @@ class Trainer:
         self._last_epoch_selected = -1
         # weak callbacks: the refresher must not hold the trainer (and
         # its parameters and optimizer state) alive in a reference cycle
+        stream = tcfg.use_craig and tcfg.streaming_ingest
         self.refresher = AsyncRefresher(
             weak_callback(self._refresh_work),
             mode=tcfg.refresh_mode,
-            on_complete=weak_callback(self._publish_refresh),
+            on_complete=weak_callback(self._publish_stream if stream else self._publish_refresh),
+            ingest_fn=weak_callback(self._stream_ingest_job) if stream else None,
             failure_policy=tcfg.refresh_failure_policy,
             on_failure=weak_callback(self._refresh_failed),
         )
+        # streaming state: the selector is built at the first drain (budget
+        # = fraction × first delta); the pool (on the device) and its doc
+        # ids are compacted in lockstep with StreamingSelector.compact()
+        self._stream_cursor = 0  # docs ingested so far (a dataset prefix)
+        self._stream_sel: StreamingSelector | None = None
+        self._stream_pool: torch.Tensor | None = None
+        self._stream_doc_ids = np.zeros((0,), np.int64)
         # previous refresh's selection in pool coordinates (the pool is a
         # fixed stride, identical across refreshes): the warm-start seed
         self._prev_selection: CoresetSelection | None = None
@@ -222,6 +242,83 @@ class Trainer:
             "error": f"{type(err).__name__}: {err}",
         })
 
+    # -- streaming ingest ------------------------------------------------------
+
+    def _stream_submit(self) -> None:
+        """Refresh boundary in streaming mode: queue the docs the dataset
+        grew by since the last boundary as one delta.  No new docs: a no-op,
+        and training goes on with the installed coreset."""
+        n = self.dataset.n_docs
+        if n <= self._stream_cursor:
+            return
+        new_idx = np.arange(self._stream_cursor, n, dtype=np.int64)
+        self._stream_cursor = n
+        self.refresher.ingest((snapshot(self.params), new_idx))
+
+    def _stream_ingest_job(self, deltas: list):
+        """One coalesced drain (the refresher's worker thread in async
+        mode): extract proxies for the new docs only, ingest them, evict
+        dead pool rows, finalize.  Transactional: on a failure the selector,
+        the pool and the doc ids stay as they were, so a retry replays the
+        whole drain."""
+        params = deltas[-1][0]  # the newest snapshot wins
+        new_idx = np.concatenate([d[1] for d in deltas])  # cursor order
+        t0 = time.perf_counter()
+        feats = self.extractor.extract(params, new_idx)
+        _sync(self.device)
+        t1 = time.perf_counter()
+        labels = self._pool_labels(new_idx)
+        if self._stream_sel is None:
+            k = max(1, int(round(self.tcfg.craig.fraction * new_idx.size)))
+            self._stream_sel = StreamingSelector(
+                k, feats.shape[1], metric=self.tcfg.craig.metric,
+                per_class=labels is not None, evict=self.tcfg.streaming_evict,
+                device=self.device,
+            )
+            self._stream_pool = feats.new_zeros((0, feats.shape[1]))
+        sel = self._stream_sel
+        snap = sel.snapshot()
+        try:
+            sel.ingest(feats, labels=labels)
+            pool = torch.cat([self._stream_pool, feats])
+            doc_ids = np.concatenate([self._stream_doc_ids, new_idx])
+            if self.tcfg.streaming_evict:
+                keep = sel.compact()
+                pool = pool[torch.as_tensor(keep, device=pool.device)]
+                doc_ids = doc_ids[keep]
+            _sync(self.device)
+            t2 = time.perf_counter()
+            res = sel.result(pool)
+            idx = res.indices.cpu().numpy()
+            t3 = time.perf_counter()
+        except BaseException:
+            sel.restore(snap)
+            raise
+        self._stream_pool, self._stream_doc_ids = pool, doc_ids
+        times = {"extract_time_s": t1 - t0, "ingest_time_s": t2 - t1,
+                 "finalize_time_s": t3 - t2}
+        return (doc_ids[idx], res.weights.cpu().numpy().astype(np.float32),
+                float(res.coverage), sel.n_rows, times)
+
+    def _publish_stream(self, result: RefreshResult) -> None:
+        """Stage a drain's selection (doc ids, γ) into the sampler's back
+        buffer, with the streaming provenance in its metadata."""
+        doc_ids, weights, coverage, n_live, times = result.value
+        self.sampler.stage(
+            doc_ids,
+            weights,
+            version=result.version,
+            meta={
+                "coreset_size": int(doc_ids.size),
+                "select_time_s": result.wall_time_s,
+                **times,
+                "coverage": coverage,
+                "n_seen": self._stream_sel.n_seen,
+                "n_live": n_live,
+                "engine": self._stream_sel.config.to_dict(),
+            },
+        )
+
     def _install_refresh(self) -> None:
         """Epoch-boundary install: wait out an in-flight selection, then
         swap the staged coreset in."""
@@ -245,6 +342,7 @@ class Trainer:
             "selection_time_s": meta.get("selection_time_s", float("nan")),
             "install_stall_s": stall,
             "engine": meta.get("engine"),
+            **{k: meta[k] for k in _STREAM_META if k in meta},
         })
 
     # -- evaluation ------------------------------------------------------------
@@ -285,14 +383,37 @@ class Trainer:
                 {str(k): int(v) for k, v in prev.per_class_sizes.items()},
             },
         }
-        self.ckpt.save(self.step, {"params": self.params, "opt": self.opt_state},
-                       extras, blocking=blocking)
+        tree = {"params": self.params, "opt": self.opt_state}
+        if self.tcfg.streaming_ingest:
+            # the pool and the sieve states go in the tensor tree, the rest
+            # of the selector's state_dict in the JSON extras
+            sel = self._stream_sel
+            sd = None if sel is None else sel.state_dict(tensors=True)
+            states = {} if sd is None else sd["states"]
+            if sd is not None:
+                sd["states"] = list(states)
+            tree["stream"] = {
+                "pool": torch.zeros(0) if self._stream_pool is None else self._stream_pool,
+                "states": states,
+            }
+            extras["stream"] = {"cursor": self._stream_cursor, "selector": sd,
+                                "doc_ids": self._stream_doc_ids.tolist()}
+        self.ckpt.save(self.step, tree, extras, blocking=blocking)
 
     def restore_or_init(self) -> bool:
         """Restore the latest checkpoint if there is one; True if restored."""
         if self.ckpt is None or self.ckpt.latest_step() is None:
             return False
-        tree, extras = self.ckpt.restore({"params": self.params, "opt": self.opt_state})
+        template = {"params": self.params, "opt": self.opt_state}
+        st = self.ckpt.extras().get("stream")
+        if st is not None:
+            keys = [] if st["selector"] is None else st["selector"]["states"]
+            # None leaves: the saved tensors as written (dtypes included)
+            template["stream"] = {
+                "pool": None,
+                "states": {k: dict.fromkeys(StreamingState._fields) for k in keys},
+            }
+        tree, extras = self.ckpt.restore(template)
         self.params = tree["params"]
         self.opt_state = tree["opt"]
         self.step = int(extras["step"])
@@ -313,6 +434,15 @@ class Trainer:
                 per_class_sizes=None if pcs is None else {int(k): int(v) for k, v in pcs.items()},
                 engine=ps.get("engine"),
             )
+        if st is not None:
+            self._stream_cursor = int(st["cursor"])
+            self._stream_doc_ids = np.asarray(st["doc_ids"], np.int64)
+            sd = st["selector"]
+            if sd is not None:
+                sd["states"] = tree["stream"]["states"]
+                self._stream_sel = StreamingSelector(sd["budget"], sd["dim"], device=self.device)
+                self._stream_sel.load_state_dict(sd)
+                self._stream_pool = tree["stream"]["pool"].to(self.device)
         return True
 
     # -- main loop ----------------------------------------------------------------
@@ -326,7 +456,10 @@ class Trainer:
             if tc.use_craig and tc.select_every_epochs > 0 and self.sampler.step_in_epoch == 0:
                 self._install_refresh()
                 if epoch % tc.select_every_epochs == 0 and epoch != self._last_epoch_selected:
-                    self.refresher.submit(self.params)
+                    if tc.streaming_ingest:
+                        self._stream_submit()
+                    else:
+                        self.refresher.submit(self.params)
                     self._last_epoch_selected = epoch
 
             idx, w = self.sampler.next_batch()

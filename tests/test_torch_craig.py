@@ -135,8 +135,64 @@ def test_weights_sum_to_n_when_budget_cannot_cover_classes():
     np.testing.assert_allclose(got.weights, ref.weights)
 
 
-@pytest.mark.parametrize("legacy", ["matrix", "device", "sparse"])
-def test_legacy_engine_string_raises(legacy):
-    x, _ = _data(50, 4, 2, seed=0)
-    with pytest.raises(ValueError, match="ROADMAP"):
-        CraigSelector(CraigConfig(engine=legacy, per_class=False), device="cpu").select(x)
+# Legacy engine strings with flat knobs.  The port's impl knobs default to
+# 'auto' (the reference's to 'jax', which here would be the plain twin on a
+# card), so the reference is given 'auto' where the port keeps its default.
+_PORT_IMPL_DEFAULTS = {"gains_impl": "auto", "topk_impl": "auto"}
+_LEGACY_KNOBS = [
+    {},
+    {"gains_impl": "pallas", "topk_impl": "pallas", "topk_k": 32, "device_q": 16,
+     "device_stale_tol": 0.8, "device_tile_dtype": "bfloat16", "stochastic_delta": 0.05},
+    {"gains_impl": "jax", "topk_impl": "jax", "topk_k": 7, "device_q": 4},
+]
+
+
+@pytest.mark.parametrize("knobs", range(len(_LEGACY_KNOBS)))
+@pytest.mark.parametrize("legacy", ["matrix", "lazy", "stochastic", "features", "sparse",
+                                    "device"])
+def test_legacy_engine_strings_warn_and_map_as_the_reference(legacy, knobs):
+    from repro.core.engines.legacy import resolve_engine_config as jresolve
+    from repro_torch import convert
+    from repro_torch.core.engines.legacy import resolve_engine_config
+
+    kw = _LEGACY_KNOBS[knobs]
+    with pytest.warns(DeprecationWarning, match=f"engine='{legacy}'"):
+        want = jresolve(jcraig.CraigConfig(engine=legacy, **{**_PORT_IMPL_DEFAULTS, **kw}))
+    with pytest.warns(DeprecationWarning, match=f"engine='{legacy}'") as rec:
+        got = resolve_engine_config(CraigConfig(engine=legacy, **kw))
+    assert got == convert.engine_config_from_reference(want.to_dict())
+    assert len(rec) == 1
+    # the port's own implementation names map to themselves
+    port_kw = {k: {"jax": "torch", "pallas": "cuda"}.get(v, v) for k, v in kw.items()}
+    with pytest.warns(DeprecationWarning):
+        assert resolve_engine_config(CraigConfig(engine=legacy, **port_kw)) == got
+
+
+@pytest.mark.parametrize("legacy", ["matrix", "lazy", "stochastic", "features", "sparse",
+                                    "device"])
+def test_legacy_engine_string_selects(legacy):
+    x, y = _data(90, 4, 3, seed=4)
+    with pytest.warns(DeprecationWarning) as rec:
+        cs = CraigSelector(CraigConfig(engine=legacy, fraction=0.2), device="cpu").select(x, y)
+    assert len(rec) == 1 and rec[0].filename == __file__  # the caller's line
+    assert cs.engine["name"] == legacy and cs.size == 18
+    assert cs.weights.sum() == pytest.approx(90.0)
+
+
+def test_legacy_knobs_beside_a_typed_engine_warn_and_bad_strings_raise():
+    from repro_torch.core.engines.legacy import resolve_engine_config
+
+    with pytest.warns(UserWarning, match="ignores the legacy flat engine knobs"):
+        assert resolve_engine_config(CraigConfig(engine=E.MatrixConfig(), topk_k=3)) == \
+            E.MatrixConfig()
+    with pytest.warns(UserWarning, match="ignores"):
+        assert resolve_engine_config(CraigConfig(device_q=2)) is None  # 'auto'
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        assert resolve_engine_config(CraigConfig()) is None
+    with pytest.raises(ValueError, match="unknown engine 'tree'"):
+        resolve_engine_config(CraigConfig(engine="tree"))
+    with pytest.raises(ValueError, match="unknown implementation name"):
+        resolve_engine_config(CraigConfig(engine="features", gains_impl="mosaic"))
+    with pytest.raises(TypeError):
+        CraigConfig("budget")  # the inherited knobs keep the config keyword-only

@@ -166,16 +166,19 @@ def test_auto_policy_past_sparse_threshold_raises():
     # an engine not ported yet still raises
     assert E.auto_engine_config(300_000, backend="cuda") == E.SparseConfig()
     with pytest.raises(ValueError, match="not ported"):
-        E.get_engine("lazy")
+        E.get_engine("tree")
 
 
 def test_config_round_trip_and_spec():
     for cfg in (E.MatrixConfig(), E.FeaturesConfig(gains_impl="cuda"),
-                E.DeviceConfig(q=16, stale_tol=0.8, tile_dtype="bfloat16")):
+                E.DeviceConfig(q=16, stale_tol=0.8, tile_dtype="bfloat16"),
+                E.LazyConfig(), E.StochasticConfig(delta=0.05)):
         assert E.EngineConfig.from_dict(cfg.to_dict()) == cfg
     assert E.parse_engine_spec("device:q=16,stale_tol=0.8") == E.DeviceConfig(
         q=16, stale_tol=0.8
     )
-    assert E.list_engines() == ("matrix", "features", "device", "sparse", "streaming")
+    assert E.list_engines() == ("matrix", "lazy", "stochastic", "features", "device",
+                                "sparse", "streaming")
+    assert E.registry.NOT_PORTED.keys() == {"tree"}
     with pytest.raises(ValueError, match="not ported"):
-        E.get_engine("stochastic")
+        E.get_engine("tree")

@@ -46,7 +46,10 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
         "repro_torch.examples.lm_coreset_training, repro_torch.core.engines.sparse, "
         "repro_torch.core.engines.streaming, repro_torch.kernels.topk_sim, "
         "repro_torch.kernels.pairwise_l2, repro_torch.serve, repro_torch.launch.serve, "
-        "repro_torch.launch.train, repro_torch.models.moe, repro_torch.configs.shapes\n"
+        "repro_torch.launch.train, repro_torch.models.moe, repro_torch.configs.shapes, "
+        "repro_torch.core.engines.lazy, repro_torch.core.engines.stochastic, "
+        "repro_torch.core.engines.legacy, repro_torch.core.facility_location, "
+        "repro_torch.faults.plan\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
         "assert not bad, bad\n"
     )

@@ -8,6 +8,7 @@ against async refresh, restart against an uninterrupted run): identical
 losses — the same arithmetic in the same order.
 """
 import gc
+import json
 import threading
 import weakref
 
@@ -270,9 +271,121 @@ def test_preemption_saves_and_restart_resumes_step_for_step(tmp_path):
     assert _losses(full)[saved:] == _losses(rest)[-(14 - saved):]
 
 
-def test_streaming_ingest_is_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _trainer(None, streaming_ingest=True)
+class GrowingStream:
+    """A corpus that grows between epochs: ``n_docs`` exposes a prefix of
+    the inner stream, extended by :meth:`grow` (the reference's test
+    defines the same; neither package has one)."""
+
+    def __init__(self, inner, visible):
+        self._inner = inner
+        self.n_docs = int(visible)
+
+    def batch(self, idx):
+        return self._inner.batch(idx)
+
+    def class_labels(self, idx):
+        return self._inner.class_labels(idx)
+
+    def grow(self, n):
+        self.n_docs = min(self._inner.n_docs, self.n_docs + int(n))
+
+
+def _stream_trainer(tmp=None, seed=0, params=None, **kw):
+    ds = GrowingStream(TokenStream(n_docs=48, seq_len=24, vocab_size=128, n_topics=6), 24)
+    tcfg = TrainerConfig(
+        batch_size=8, select_every_epochs=1, refresh_mode=kw.pop("refresh_mode", "sync"),
+        streaming_ingest=True, checkpoint_dir=str(tmp) if tmp else None,
+        craig=CraigConfig(fraction=0.5, per_class=False), **kw,
+    )
+
+    def init():
+        if params is not None:
+            return {k: v.clone() for k, v in params.items()}
+        return init_params(CFG, torch.Generator().manual_seed(seed))
+
+    return ds, Trainer(CFG, tcfg, ds, adamw(constant(2e-3)), init, device="cpu")
+
+
+@pytest.mark.parametrize("evict", [True, False])
+def test_streaming_ingest_growing_corpus(evict):
+    """Only the docs appended since the last boundary are extracted, the
+    pool and its doc ids stay in lockstep with eviction, and installed
+    coresets index the grown corpus."""
+    ds, t = _stream_trainer(streaming_evict=evict)
+    pool_sizes = []
+    extract = t.extractor.extract
+    t.extractor.extract = lambda p, idx: (pool_sizes.append(list(idx)), extract(p, idx))[1]
+    t.run(4)  # boundary 0 ingests docs [0, 24); install at epoch 1
+    assert t._stream_cursor == 24 and t._stream_sel.n_seen == 24
+    assert t._stream_sel.budget == 12  # fraction × the first delta
+    ds.grow(24)
+    t.run(8)  # the next boundary ingests exactly the appended [24, 48)
+    assert pool_sizes == [list(range(24)), list(range(24, 48))]
+    assert t._stream_cursor == 48 and t._stream_sel.n_seen == 48
+    refreshes = [m for m in t.metrics_log if m["event"] == "craig_refresh"]
+    assert len(refreshes) >= 2
+    assert all(r["coreset_size"] == 12 for r in refreshes)
+    n_rows = t._stream_sel.n_rows
+    assert t._stream_pool.shape == (n_rows, CFG.d_model)
+    assert t._stream_doc_ids.shape == (n_rows,)
+    assert n_rows < 48 if evict else n_rows == 48
+    assert refreshes[-1]["n_live"] == n_rows and refreshes[-1]["n_seen"] == 48
+    assert refreshes[-1]["engine"]["name"] == "streaming"
+    idx = t.sampler._indices
+    assert len(idx) == 12 == len(np.unique(idx)) and idx.min() >= 0 and idx.max() < 48
+    assert set(idx) <= set(t._stream_doc_ids)
+    np.testing.assert_allclose(np.sum(t.sampler._weights), n_rows)  # Σγ = live rows
+    t.run(4)  # no new docs: boundaries are no-ops
+    assert t.refresher.version == 2
+
+
+def test_streaming_ingest_restart_resumes(tmp_path):
+    """The cursor, the sieve states, the compacted pool (in the tensor
+    tree) and the doc ids round-trip through the checkpoint; the restarted
+    trainer continues the stream without re-ingesting."""
+    _, t1 = _stream_trainer(tmp_path)
+    t1.run(4)
+    t1._save(blocking=True)
+    ds2, t2 = _stream_trainer(tmp_path, seed=9)
+    assert t2.restore_or_init()
+    assert t2._stream_cursor == t1._stream_cursor == 24
+    assert t2._stream_sel.n_seen == t1._stream_sel.n_seen
+    np.testing.assert_array_equal(t2._stream_doc_ids, t1._stream_doc_ids)
+    torch.testing.assert_close(t2._stream_pool, t1._stream_pool, rtol=0, atol=0)
+    for a, b in zip(t2._stream_sel.state(), t1._stream_sel.state()):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    extras = json.dumps(t2.ckpt.extras())
+    assert "sel_feats" not in extras and "pool" not in extras  # tensors, not JSON lists
+    ds2.grow(24)
+    t2.run(6)
+    assert t2._stream_cursor == 48 and t2._stream_sel.n_seen == 48
+    # a checkpoint taken before the first drain restores an empty stream
+    _, t3 = _stream_trainer(tmp_path / "early")
+    t3._save(blocking=True)
+    _, t4 = _stream_trainer(tmp_path / "early", seed=9)
+    assert t4.restore_or_init() and t4._stream_sel is None and t4._stream_cursor == 0
+
+
+def test_streaming_first_drain_matches_reference_trainer(monkeypatch):
+    """From the same weights at fp32, the first drain's features agree to
+    rtol 1e-4, and the sieve admits the same docs: doc ids and γ equal."""
+    monkeypatch.setattr(jmodel, "COMPUTE_DTYPE", jnp.float32)
+    monkeypatch.setattr(tmodel, "COMPUTE_DTYPE", torch.float32)
+    jcfg = JModelConfig(**SMALL)
+    jp = jmodel.init_params(jax.random.PRNGKey(0), jcfg)
+    tp = convert.model_params_from_reference(jax.tree.map(np.asarray, jp), CFG, device="cpu")
+    jds = GrowingStream(JTokenStream(n_docs=48, seq_len=24, vocab_size=128, n_topics=6), 24)
+    jt = JTrainer(jcfg, JTrainerConfig(batch_size=8, select_every_epochs=1, refresh_mode="sync",
+                                       streaming_ingest=True,
+                                       craig=JCraigConfig(fraction=0.5, per_class=False)),
+                  jds, jadamw(jconstant(2e-3)), lambda: jp)
+    _, tt = _stream_trainer(params=tp)
+    jt.run(4), tt.run(4)  # the first drain installs at step 3
+    np.testing.assert_allclose(tt._stream_pool.numpy(), jt._stream_pool, rtol=1e-4, atol=1e-6)
+    np.testing.assert_array_equal(tt._stream_doc_ids, jt._stream_doc_ids)
+    assert tt.sampler.version == jt.sampler.version == 1
+    np.testing.assert_array_equal(tt.sampler._indices, jt.sampler._indices)
+    np.testing.assert_array_equal(tt.sampler._weights, jt.sampler._weights)
 
 
 def test_example_runs_on_the_cpu(tmp_path, capsys):

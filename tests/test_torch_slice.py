@@ -203,12 +203,14 @@ def test_engine_configs_carry_across():
         (JE.MatrixConfig(), E.MatrixConfig()),
         (JE.SparseConfig(k=16, impl="pallas"), E.SparseConfig(k=16, impl="cuda")),
         (JE.StreamingConfig(finalize_impl="jax"), E.StreamingConfig(finalize_impl="torch")),
+        (JE.LazyConfig(), E.LazyConfig()),
+        (JE.StochasticConfig(delta=0.05), E.StochasticConfig(delta=0.05)),
     ]
     for ref_cfg, want in cases:
         assert convert.engine_config_from_reference(ref_cfg.to_dict()) == want
     # an engine the port does not have yet still raises
     with pytest.raises(ValueError, match="not ported"):
-        convert.engine_config_from_reference(JE.StochasticConfig().to_dict())
+        convert.engine_config_from_reference({"name": "tree", "fanouts": [2]})
 
 
 def test_reference_weights_give_the_same_port_loss():
