@@ -72,7 +72,18 @@ version:
      fault plan that fails one refresh attempt: each drain extracts only
      the new docs (``ce_proxy``) and finalizes through ``fl_replay``, the
      last install held to the dense finalize;
- 11. the report: one JSON line per the six kernels, then the last line,
+ 11. slice 9's distributed path on the whole Covtype-shaped pool: (a)
+     ``CraigSelector.select_distributed`` over a 4-shard mesh of the one
+     card (sparse leaves: one ``topk_sim`` a shard) held bit for bit to
+     ``select_tree((4,), compress='none')``; (b) a (8, 4) tree of 32
+     ``device`` leaves (``fl_gains_argmax``) on the int8 and the fp32 wire,
+     F(int8)/F(fp32) ≥ 0.95 over the whole pool; (c) four
+     ``launch/tree.py --device cuda`` processes over a ``TCPStore``, held
+     bit for bit to ``tree_select_host``, and a chaos run whose killed leaf
+     degrades the survivors under quorum; (d) ``ProxyExtractor(mesh=...)``
+     at qwen3-1.7b width (``ce_proxy``) held bit for bit to the
+     single-device extract;
+ 12. the report: one JSON line per the six kernels, then the last line,
      {"ok": true, "device": {...}}.
 
 Before phases 2–8, ``kernels`` compares ``topk_sim`` (both list routes:
@@ -216,6 +227,26 @@ SVC_INSTALL_AT = (4, 8, 12, 16)
 # epoch: 41 steps), or fails past STREAM_MAX_STEPS.
 STREAM_FIRST, STREAM_GROW, STREAM_DRAINS, STREAM_MAX_STEPS = 128, 128, 4, 60
 
+# Phase 11, distributed selection over the whole Covtype-shaped pool (the
+# two-round and tree paths are global, not per class): (a) the two rounds
+# on a TREE_SHARDS-shard mesh of the one card and the one-level fp32 tree,
+# sparse leaves; (b) a TREE_FANOUTS tree with device leaves on both wires;
+# (c) the process driver, PROC_* per launch/tree.py; (d) the data-parallel
+# extract of DP_DOCS docs (16 batches of LM_BATCH × LM_SEQ) at qwen3-1.7b
+# width.  F and L of (b) are taken over F_BLOCK-row blocks.  (b) at
+# fraction 0.005 took 29.7 s of a 95.8 s phase on the H100; 0.0025 halves
+# its rounds.  MERGE_STEPS of (a)'s merge picks are held to an fp64
+# greedy.  OBJ_GATE is bench_tree_select.py's; F is mostly n·d_max, so
+# L_GATE holds L(S) of the pool itself: the int8 wire may cost 1% of it.
+# Three runs on the H100 put the two wires' L(S) within 2e-5 of each other
+# (from the F they printed).
+TREE_SHARDS, TREE_FRACTION, MERGE_STEPS = 4, 0.01, 128
+TREE_FANOUTS, TREE_DEEP_FRACTION, OBJ_GATE, L_GATE = (8, 4), 0.0025, 0.95, 1.01
+PROC_N, PROC_D, PROC_R_LOCAL, PROC_R_FINAL = 65_536, 64, 256, 512
+PROC_TIMEOUT = 300
+DP_DOCS = 128
+F_BLOCK = 8192
+
 # Published dense peaks (NVIDIA data sheet, H100 SXM): fp32 on the CUDA
 # cores, bf16 on the tensor cores, and device-memory bandwidth, keyed by
 # the card's name.
@@ -323,6 +354,33 @@ def gain_tol(x, n: int, d_max: float, bf16: bool) -> float:
     if bf16:
         tol += 4.0 * math.sqrt(2.0**-8) * norm
     return tol
+
+
+def hold_argmax(torch, ops, x, cur, sq, d_max, chosen, tile: str, what: str):
+    """One ``fl_gains_argmax`` sweep of ``x`` against itself through the
+    kernel and the plain twin: gains within ``gain_tol`` (+1e-5 rel), the
+    winners equal or a near-tie, never a chosen candidate.  Returns (max
+    |Δgain|, the kernel's block partials)."""
+    tol = gain_tol(x, x.shape[0], float(d_max), tile == "bfloat16")
+    before = ops.LAUNCHES["fl_gains_argmax"]
+    g, pg, pi = ops.fl_gains_argmax(x, x, cur, sq, sq, d_max, chosen,
+                                    tile_dtype=tile, gains_impl="cuda")
+    torch.cuda.synchronize()
+    if ops.LAUNCHES["fl_gains_argmax"] != before + 1:
+        raise AssertionError("fl_gains_argmax launch counter did not advance")
+    gp, pgp, pip = ops.fl_gains_argmax(x, x, cur, sq, sq, d_max, chosen,
+                                       tile_dtype=tile, gains_impl="torch")
+    err = float((g - gp).abs().max())
+    scale = float(gp.abs().max())
+    if err > tol + 1e-5 * scale:
+        raise AssertionError(f"{what}: max |err| {err} > {tol} + 1e-5·{scale}")
+    live = torch.where(chosen, float("-inf"), gp)
+    wk, wp = int(pi[torch.argmax(pg)]), int(pip[torch.argmax(pgp)])
+    if wk != wp and abs(float(live[wk]) - float(live[wp])) > tol:
+        raise AssertionError(f"{what}: winner {wk} vs plain {wp} is not a near-tie")
+    if bool(chosen[wk]):
+        raise AssertionError(f"{what}: a chosen candidate won the sweep")
+    return err, pg
 
 
 def class_positions(np, indices, pool) -> list:
@@ -974,10 +1032,11 @@ def covtype_pool(dev):
     return convex_feature_proxy(x_np, device=dev), y
 
 
-def covtype_selection(torch, ops, card, dev, peaks) -> dict:
-    """Slice 3's first path: per-class CRAIG on the Covtype-shaped pool with
-    engine='auto' (the sparse engine), then two epochs of weighted IG.
-    Returns the report entries of ``topk_sim`` and ``pairwise_l2``."""
+def covtype_selection(torch, ops, card, dev, peaks, feats, y) -> dict:
+    """Slice 3's first path: per-class CRAIG on the Covtype-shaped pool
+    (``covtype_pool``) with engine='auto' (the sparse engine), then two
+    epochs of weighted IG.  Returns the report entries of ``topk_sim`` and
+    ``pairwise_l2``."""
     import numpy as np
 
     from repro_torch.core import engines as E
@@ -988,7 +1047,6 @@ def covtype_selection(torch, ops, card, dev, peaks) -> dict:
     from repro_torch.optim import ig_run
 
     fp32_peak, _, mem_bw = peaks
-    feats, y = covtype_pool(dev)
     selector = CraigSelector(CraigConfig(fraction=0.1, per_class=True), device=dev)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1565,6 +1623,420 @@ def streaming_lm_training(torch, ops, card, dev) -> dict:
     return {"ce_proxy": launches["ce_proxy"], "fl_replay": launches["fl_replay"]}
 
 
+def pool_coverage(torch, x, idx) -> float:
+    """L(S) = Σ_i min_{j∈S} ‖x_i − x_j‖ over F_BLOCK-row blocks of the fp32
+    products on the card, summed in fp64; F(S) = n·d_max − L(S) is the
+    facility-location value ``benchmarks/bench_tree_select.py`` gates."""
+    med = x[torch.as_tensor(idx, device=x.device)]
+    sqm = torch.sum(med * med, dim=1)
+    total = 0.0
+    for lo in range(0, x.shape[0], F_BLOCK):
+        xb = x[lo:lo + F_BLOCK]
+        d2 = (xb @ med.T).mul_(-2.0).add_(torch.sum(xb * xb, dim=1)[:, None]).add_(sqm[None, :])
+        total += float(torch.sqrt(torch.clamp(d2, min=0.0)).min(dim=1).values.double().sum())
+    return total
+
+
+def pool_d_max(torch, x) -> float:
+    """The pool's largest pairwise distance + 1e-6, over F_BLOCK × 8·F_BLOCK
+    tiles of the fp32 product on the card; a row block meets only the
+    columns from its own first row on (the distance is symmetric)."""
+    sq = torch.sum(x * x, dim=1)
+    best = torch.zeros((), device=x.device)
+    for lo in range(0, x.shape[0], F_BLOCK):
+        xb, sqb = x[lo:lo + F_BLOCK], sq[lo:lo + F_BLOCK]
+        for co in range(lo, x.shape[0], 8 * F_BLOCK):
+            d2 = (xb @ x[co:co + 8 * F_BLOCK].T).mul_(-2.0)
+            d2.add_(sqb[:, None]).add_(sq[None, co:co + 8 * F_BLOCK])
+            best = torch.maximum(best, d2.max())
+    return math.sqrt(max(float(best), 0.0)) + 1e-6
+
+
+def hold_merge64(torch, parity, cands, got, steps: int) -> dict:
+    """Hold the first ``steps`` picks of a two-round selection to an fp64
+    weighted greedy over the candidate union, built here from the leaves'
+    ``(feats, γ, global ids)`` in shard order.  Each pick must be a union
+    member, and its fp64 gain given the picks before it within τ·max γ of
+    the best (``parity``'s tie rule of a weighted greedy)."""
+    cx = torch.cat([c[0] for c in cands]).double()
+    cw = torch.cat([c[1] for c in cands]).double()
+    pos = {g: i for i, g in enumerate(torch.cat([c[2] for c in cands]).tolist())}
+    picks = [pos.get(int(g), -1) for g in got[:steps]]
+    if -1 in picks:
+        raise AssertionError(f"pick {picks.index(-1)} is not in the candidate union")
+    dist = torch.cdist(cx, cx)
+    cover = torch.full_like(cw, float(dist.max()) + 1e-6)
+    chosen = torch.zeros(cx.shape[0], dtype=torch.bool, device=cx.device)
+    tol = parity.tie_tolerance(cx) * float(cw.max())
+    exact, worst = 0, 0.0
+    for t, p in enumerate(picks):
+        g = (torch.clamp(cover[:, None] - dist, min=0.0) * cw[:, None]).sum(dim=0)
+        g[chosen] = float("-inf")
+        best, e = torch.max(g, dim=0)
+        gap = float(best) - float(g[p])
+        if gap > tol:
+            raise AssertionError(f"merge pick {t} ({p}) is {gap} below the fp64 best "
+                                 f"{float(best)} (tol {tol})")
+        exact += int(e) == p
+        worst = max(worst, gap)
+        chosen[p] = True
+        cover = torch.minimum(cover, dist[:, p])
+    return {"union": cx.shape[0], "steps": len(picks), "fp64_argmax": exact,
+            "max_gap": worst, "tol": tol}
+
+
+def hold_reweight64(torch, x, got, tol_d: float) -> dict:
+    """γ and L(S) of a selection recomputed from the pool in fp64 on the
+    card: every row to its nearest ``x[got.indices]``.  An fp32 distance
+    d from the norm expansion is off by at most e = min(tol_d, tol_d²/2d)
+    (``dist_tol``: the root of the d² rounding near 0, its first-order
+    share away from 0).  A count may move only with a row whose two
+    nearest medoids lie within 2e; L(S) may differ by Σe and a pairwise
+    fp32 sum's 2·⌈log₂ n⌉·ε₃₂·L."""
+    import numpy as np
+
+    med = x[torch.as_tensor(got.indices, device=x.device)].double()
+    r = med.shape[0]
+    counts = torch.zeros(r, dtype=torch.float64, device=x.device)
+    total, slack, near = 0.0, 0.0, 0
+    for lo in range(0, x.shape[0], F_BLOCK):
+        two = torch.topk(torch.cdist(x[lo:lo + F_BLOCK].double(), med), 2, dim=1,
+                         largest=False)
+        d1 = two.values[:, 0]
+        e = torch.clamp(tol_d * tol_d / (2.0 * d1), max=tol_d)
+        counts += torch.bincount(two.indices[:, 0], minlength=r).double()
+        total += float(d1.sum())
+        slack += float(e.sum())
+        near += int((two.values[:, 1] - d1 <= 2.0 * e).sum())
+    moved = float(np.abs(counts.cpu().numpy() - got.weights).sum())
+    if moved > 2 * near:
+        raise AssertionError(f"γ differs from the fp64 assignment by {moved} counts, "
+                             f"with {near} near-tie rows")
+    bound = slack + 2 * math.ceil(math.log2(x.shape[0])) * torch.finfo(torch.float32).eps * total
+    if abs(got.coverage - total) > bound:
+        raise AssertionError(f"L(S) {got.coverage} against fp64 {total} (bound {bound})")
+    return {"moved": moved, "near_ties": near, "L64": total, "L_bound": bound}
+
+
+def timed_select(torch, ops, fn):
+    """Counts zeroed just before ``fn()``, read just after; host seconds
+    around work that ends in a synchronize."""
+    torch.cuda.synchronize()
+    for k in ops.LAUNCHES:
+        ops.LAUNCHES[k] = 0
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, dict(ops.LAUNCHES)
+
+
+def hold_selection(sel, n: int, r: int, tag: str) -> None:
+    import numpy as np
+
+    wsum = float(np.sum(sel.weights, dtype=np.float64))
+    if wsum != n or sel.size != r or len(np.unique(sel.indices)) != r:
+        raise AssertionError(f"{tag}: Σγ {wsum} (expected {n}), {sel.size} selected "
+                             f"({len(np.unique(sel.indices))} distinct), expected {r}")
+    if not math.isfinite(sel.coverage):
+        raise AssertionError(f"{tag}: coverage {sel.coverage}")
+
+
+def launch_tree(nproc: int, args: list, victim_env: dict | None = None) -> list:
+    """``python -m repro_torch.launch.tree`` in ``nproc`` processes over a
+    store on a free local port; the last process gets ``victim_env``.
+    Returns [(returncode, stdout, stderr)]; every process is reaped."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    env.pop("REPRO_FAULT_PLAN", None)
+    common = ["--coordinator", f"127.0.0.1:{port}", "--num-processes", str(nproc), *args]
+    procs = []
+    try:
+        for i in range(nproc):
+            e = dict(env, **victim_env) if victim_env and i == nproc - 1 else env
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.tree", "--process-id", str(i),
+                 *common], env=e, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True))
+        outs = [p.communicate(timeout=PROC_TIMEOUT) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return [(p.returncode, out, err) for p, (out, err) in zip(procs, outs)]
+
+
+def tree_record(out: str, err: str) -> dict:
+    lines = [ln for ln in out.splitlines() if ln.startswith("TREE_SELECT_RESULT ")]
+    if len(lines) != 1:
+        raise AssertionError(f"launch/tree.py printed {len(lines)} results: {err[-2000:]}")
+    return json.loads(lines[0].split(" ", 1)[1])
+
+
+def distributed_selection(torch, ops, card, dev, feats) -> dict:
+    """Phase 11: the distributed path of slice 9 on the card.  Returns the
+    launches of its kernels on its main paths."""
+    import numpy as np
+
+    from repro_torch import parity
+    from repro_torch.core import engines as E
+    from repro_torch.core.craig import CraigConfig, CraigSelector
+    from repro_torch.core.distributed import leaf_round
+    from repro_torch.core.engines.sparse import ASSIGN_BLOCK_BYTES
+    from repro_torch.distributed.tree_select import (
+        TreeTopology, default_r_node, tree_select_host, wire_bytes_plan)
+    from repro_torch.kernels import fl_gains as kfl
+    from repro_torch.launch.mesh import compat_mesh
+    from repro_torch.launch.tree import _synthetic_pool
+
+    n, d = feats.shape
+    used = {k: 0 for k in ops.LAUNCHES}
+    errs = {"topk_sim": 0.0, "pairwise_l2": 0.0, "fl_gains_argmax": 0.0}
+
+    def count(launches):
+        for k, v in launches.items():
+            used[k] += v
+
+    # (a) two rounds on a 4-shard mesh of the one card, and the one-level
+    # fp32 tree: equal bit for bit
+    mesh = compat_mesh((TREE_SHARDS,), ("data",), devices=[dev])
+    sel = CraigSelector(CraigConfig(fraction=TREE_FRACTION, per_class=False,
+                                    engine=E.SparseConfig()), device=dev)
+    r_final = sel._budget(n)
+    torch.cuda.reset_peak_memory_stats()
+    two, two_s, la = timed_select(torch, ops, lambda: sel.select_distributed(feats, mesh))
+    peak_a = torch.cuda.max_memory_allocated() / 1e9
+    tree, tree_s, lb = timed_select(
+        torch, ops, lambda: sel.select_tree(feats, (TREE_SHARDS,), compress="none"))
+    count(la)
+    count(lb)
+    for tag, got, launches in (("two-round", two, la), ("one-level tree", tree, lb)):
+        hold_selection(got, n, r_final, f"[11a] {tag}")
+        if launches["topk_sim"] != TREE_SHARDS:
+            raise AssertionError(f"[11a] {tag}: launches {launches}, expected "
+                                 f"{TREE_SHARDS} topk_sim (one a shard)")
+    if not (np.array_equal(two.indices, tree.indices)
+            and np.array_equal(two.weights, tree.weights)):
+        raise AssertionError("[11a] select_distributed and select_tree((4,), 'none') differ")
+    if abs(two.coverage - tree.coverage) > 1e-5 * abs(two.coverage):
+        raise AssertionError(f"[11a] coverage {two.coverage} vs {tree.coverage}")
+    log(f"[11a] two rounds over a {TREE_SHARDS}-shard mesh of {dev} ({n} × {d}, shards of "
+        f"{n // TREE_SHARDS}, r_final {r_final}, engine {two.engine}): {two_s:.3f}s, launches "
+        f"{la}; the one-level fp32 tree {tree_s:.3f}s, launches {lb}; equal indices and γ, "
+        f"L(S) {two.coverage:.4f} / {tree.coverage:.4f}; Σγ "
+        f"{np.sum(two.weights, dtype=np.float64):.0f}; max_memory_allocated {peak_a:.2f} GB; "
+        f"{card}")
+
+    # (a) against references built here: the leaves rerun shard by shard
+    # (shard 0's topk_sim graph and first pairwise_l2 assignment block held
+    # to their plain twins), the merge's first picks against an fp64
+    # weighted greedy over their union, γ and L(S) against an fp64
+    # assignment of the pool
+    t0 = time.perf_counter()
+    ec = E.engine_config_from_dict(two.engine)
+    nl = n // TREE_SHARDS
+    r_local = max(1, min(nl, int(r_final * 2 / TREE_SHARDS) + 1))
+    cands = []
+    for s in range(TREE_SHARDS):
+        xs = feats[s * nl:(s + 1) * nl].contiguous()
+        idx, w = leaf_round(xs, r_local, ec)
+        cands.append((xs[idx], w, s * nl + idx))
+        if s:
+            continue
+        tol_s = dist_tol(torch, xs)
+        errs["topk_sim"], g_diff = compare_graphs(
+            torch, xs, ops.topk_sim(xs, ec.k, impl="cuda"),
+            ops.topk_sim(xs, ec.k, impl="torch"), tol_s)
+        rows = min(nl, ASSIGN_BLOCK_BYTES // (4 * r_local))
+        xb, med = xs[:rows].contiguous(), xs[idx].contiguous()
+        errs["pairwise_l2"] = float((ops.pairwise_l2(xb, med, impl="cuda")
+                                     - ops.pairwise_l2(xb, med, impl="torch")).abs().max())
+        if errs["pairwise_l2"] > tol_s:
+            raise AssertionError(f"[11a] pairwise_l2 at {rows} × {r_local} × {d}: max |err| "
+                                 f"{errs['pairwise_l2']} > {tol_s}")
+        log(f"[11a] shard 0 ({nl} × {d}): topk_sim k={ec.k} against its plain twin: max "
+            f"|Δvals| {errs['topk_sim']:.3e} (tol {tol_s:.3e}), {g_diff} of {nl * ec.k} index "
+            f"slots differ (near-ties); pairwise_l2 at the first assignment block ({rows} × "
+            f"{r_local} × {d}) against its plain twin: max |err| {errs['pairwise_l2']:.3e}")
+        del xb, med
+    merge = hold_merge64(torch, parity, cands, two.indices, MERGE_STEPS)
+    reweight = hold_reweight64(torch, feats, two, dist_tol(torch, feats))
+    del cands
+    log(f"[11a] the two rounds against references built here ({time.perf_counter() - t0:.1f}s): "
+        f"the first {merge['steps']} merge picks against an fp64 weighted greedy over the "
+        f"{merge['union']}-candidate union: {merge['fp64_argmax']} are its argmax, the largest "
+        f"gap {merge['max_gap']:.3e} (tol {merge['tol']:.3e}); γ against the fp64 assignment of "
+        f"the pool: {reweight['moved']:.0f} counts moved ({reweight['near_ties']} near-tie rows), "
+        f"L(S) {two.coverage:.4f} against fp64 {reweight['L64']:.4f}")
+
+    # (b) a deep tree with device leaves on the int8 and the fp32 wire
+    deep = CraigSelector(CraigConfig(fraction=TREE_DEEP_FRACTION, per_class=False,
+                                     engine=E.DeviceConfig()), device=dev)
+    topo = TreeTopology(TREE_FANOUTS)
+    r_deep = deep._budget(n)
+    r_leaf = max(1, min(n // topo.n_leaves, int(r_deep * 2 / topo.n_leaves) + 1))
+    runs = {}
+    for compress in ("int8", "none"):
+        got, secs, launches = timed_select(
+            torch, ops, lambda: deep.select_tree(feats, TREE_FANOUTS, compress=compress))
+        count(launches)
+        hold_selection(got, n, r_deep, f"[11b] {compress} tree")
+        if launches["fl_gains_argmax"] != topo.n_leaves * r_leaf:
+            raise AssertionError(f"[11b] {compress} tree: launches {launches}, expected "
+                                 f"{topo.n_leaves * r_leaf} fl_gains_argmax")
+        runs[compress] = (got, secs, launches)
+    t0 = time.perf_counter()
+    d_max = pool_d_max(torch, feats)
+    cov = {c: pool_coverage(torch, feats, runs[c][0].indices) for c in runs}
+    f_int8, f_fp32 = n * d_max - cov["int8"], n * d_max - cov["none"]
+    obj_s = time.perf_counter() - t0
+    if f_int8 / f_fp32 < OBJ_GATE:
+        raise AssertionError(f"[11b] F(int8)/F(fp32) = {f_int8 / f_fp32} < {OBJ_GATE}")
+    if cov["int8"] / cov["none"] > L_GATE:
+        raise AssertionError(f"[11b] L(int8)/L(fp32) = {cov['int8'] / cov['none']} > {L_GATE}")
+    # leaf 0 (its rows are the first of the pool): the sweep against its
+    # plain twin at the leaf shape, in the first round and in a mid-run
+    # state, and its candidates' int8 payload against a plain quantizer
+    from repro_torch.distributed.compression import quantize_rows_int8
+
+    leaf = feats[:-(-n // topo.n_leaves)].contiguous()
+    nleaf = leaf.shape[0]
+    sq = torch.sum(leaf * leaf, dim=1)
+    dm = 2.0 * torch.sqrt(sq.max()) + 1e-6
+    g11 = torch.Generator(device=dev).manual_seed(11)
+    states = {"first round": (torch.zeros(nleaf, device=dev),
+                              torch.zeros(nleaf, dtype=torch.bool, device=dev)),
+              "mid-run": (0.5 * dm * torch.rand(nleaf, device=dev, generator=g11),
+                          torch.rand(nleaf, device=dev, generator=g11) < 0.3)}
+    states["mid-run"][1][-1] = False
+    for state, (cur, chosen) in states.items():
+        e, _ = hold_argmax(torch, ops, leaf, cur, sq, dm, chosen, "float32",
+                           f"[11b] fl_gains_argmax at {nleaf} × {d}, {state}")
+        errs["fl_gains_argmax"] = max(errs["fl_gains_argmax"], e)
+    madj = (dm - states["first round"][0]).contiguous()
+    free = states["first round"][1]
+    sweep_ms = median_ms(torch, lambda: kfl.fl_gains_argmax_cuda(leaf, leaf, madj, sq, sq, free))
+    idx, _ = leaf_round(leaf, r_leaf, E.engine_config_from_dict(runs["int8"][0].engine["local"]))
+    payload = leaf[idx]
+    q, scale = quantize_rows_int8(payload)
+    xf = payload.cpu().numpy()
+    want_scale = np.max(np.abs(xf), axis=1) / np.float32(127.0) + np.float32(1e-12)
+    want_q = np.clip(np.round(xf / want_scale[:, None]), -127, 127).astype(np.int8)
+    bad_q = int(np.sum(q.cpu().numpy() != want_q))
+    bad_s = int(np.sum(scale.cpu().numpy() != want_scale))
+    if bad_q or bad_s:
+        raise AssertionError(f"[11b] leaf 0's int8 payload: {bad_q} of {want_q.size} codes and "
+                             f"{bad_s} of {want_scale.size} scales differ from a plain quantizer")
+    sent = q.numel() * q.element_size() + scale.numel() * scale.element_size()
+    fp32_sent = payload.numel() * payload.element_size()
+    plan = wire_bytes_plan(topo, r_leaf, default_r_node(r_leaf, r_deep), d, "int8")["per_level"][0]
+    if (plan["bytes"], plan["fp32_bytes"]) != (plan["children"] * sent,
+                                               plan["children"] * fp32_sent):
+        raise AssertionError(f"[11b] wire plan {plan} against a built payload of {sent} "
+                             f"bytes ({fp32_sent} in fp32)")
+    del leaf, sq, madj, free, states, payload
+    for compress, (got, secs, launches) in runs.items():
+        log(f"[11b] tree {TREE_FANOUTS} ({topo.n_leaves} leaves of {n // topo.n_leaves}–"
+            f"{-(-n // topo.n_leaves)}, r_local {r_leaf}, r_final {r_deep}, device leaves) on "
+            f"the {compress} wire: {secs:.3f}s, launches {launches}, L(S) "
+            f"{got.coverage:.4f}; {card}")
+    log(f"[11b] F(int8) / F(fp32) = {f_int8:.6e} / {f_fp32:.6e} = {f_int8 / f_fp32:.6f} "
+        f"(gate {OBJ_GATE}); L(int8) / L(fp32) = {cov['int8']:.4f} / {cov['none']:.4f} = "
+        f"{cov['int8'] / cov['none']:.6f} (gate {L_GATE}); d_max {d_max:.6f}, {obj_s:.2f}s")
+    log(f"[11b] leaf 0's {r_leaf} candidates on the int8 wire: codes and scales equal a plain "
+        f"true-division quantizer's; {sent:,} bytes against {fp32_sent:,} in fp32 (reduction "
+        f"{fp32_sent / sent:.4f}), {topo.n_leaves} of them at level 1 as wire_bytes_plan counts")
+    log(f"[11b] fl_gains_argmax at the leaf shape (n = m = {nleaf}, d = {d}, fp32) against its "
+        f"plain twin, first round and mid-run: max |Δgain| {errs['fl_gains_argmax']:.3e}; alone "
+        f"{sweep_ms:.3f} ms (median of {TIMED_LAUNCHES}); × {topo.n_leaves * r_leaf} rounds = "
+        f"{sweep_ms * topo.n_leaves * r_leaf / 1e3:.3f} s of a run; {card}")
+
+    # (c) the process driver: four launch/tree.py processes on the one card
+    args = ["--n", str(PROC_N), "--d", str(PROC_D), "--r-local", str(PROC_R_LOCAL),
+            "--r-final", str(PROC_R_FINAL), "--device", "cuda"]
+    t0 = time.perf_counter()
+    res = launch_tree(4, ["--fanouts", "2,2", *args])
+    clean_s = time.perf_counter() - t0
+    for rc, _, err in res:
+        if rc != 0:
+            raise AssertionError(f"[11c] launch/tree.py exited {rc}: {err[-2000:]}")
+    recs = [tree_record(out, err) for _, out, err in res]
+    keys = ("indices", "weights", "coverage")
+    if any(tuple(r[k] for k in keys) != tuple(recs[0][k] for k in keys) for r in recs):
+        raise AssertionError("[11c] the processes disagree")
+    host = tree_select_host(torch.from_numpy(_synthetic_pool(PROC_N, PROC_D, 0)).to(dev),
+                            TreeTopology((2, 2)), PROC_R_LOCAL, PROC_R_FINAL, compress="int8")
+    if (host.indices.tolist() != recs[0]["indices"] or host.weights.tolist() != recs[0]["weights"]
+            or float(host.coverage) != recs[0]["coverage"]):
+        raise AssertionError("[11c] the process driver differs from tree_select_host")
+    log(f"[11c] 4 launch/tree.py processes on {recs[0]['device']} (fan-outs 2,2, {PROC_N} × "
+        f"{PROC_D}, r_local {PROC_R_LOCAL}, r_final {PROC_R_FINAL}, int8 wire): {clean_s:.1f}s "
+        f"(process start included); all four equal tree_select_host bit for bit; Σγ "
+        f"{recs[0]['weight_sum']:.0f}, wire {recs[0]['wire_bytes']:,} bytes; {card}")
+    plan_json = json.dumps({"seed": 0, "specs": [{"site": "tree.publish", "kind": "kill"}]})
+    t0 = time.perf_counter()
+    res = launch_tree(4, ["--fanouts", "4", *args, "--min-quorum", "0.75",
+                          "--level-deadline-s", "10", "--heartbeat-interval-s", "0.2",
+                          "--heartbeat-grace-s", "2.0"],
+                      victim_env={"REPRO_FAULT_PLAN": plan_json})
+    chaos_s = time.perf_counter() - t0
+    if res[3][0] != -9:
+        raise AssertionError(f"[11c] the victim exited {res[3][0]}, not by SIGKILL")
+    for rc, _, err in res[:3]:
+        if rc != 0:
+            raise AssertionError(f"[11c] a survivor exited {rc}: {err[-2000:]}")
+    recs = [tree_record(out, err) for _, out, err in res[:3]]
+    health = recs[0]["health"]
+    if (any(r["indices"] != recs[0]["indices"] for r in recs) or health["degraded"] is not True
+            or health["missing_pids"] != [3] or health["quorum"] != 0.75
+            or recs[0]["weight_sum"] != 3 * PROC_N // 4):
+        raise AssertionError(f"[11c] chaos run: {[r['health'] for r in recs]}, Σγ "
+                             f"{recs[0]['weight_sum']}")
+    log(f"[11c] chaos run (pid 3 killed at tree.publish, fan-outs 4, min quorum 0.75): "
+        f"{chaos_s:.1f}s; survivors agree, health {health}, Σγ {recs[0]['weight_sum']:.0f}; "
+        f"{card}")
+
+    # (d) the data-parallel extract at qwen3-1.7b width
+    from repro_torch.configs import get_config
+    from repro_torch.core.extract import ProxyExtractor
+    from repro_torch.data import TokenStream
+    from repro_torch.models import init_params
+    from repro_torch.train.train_step import make_select_step
+
+    cfg = get_config(LM_ARCH)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    ds = TokenStream(n_docs=DP_DOCS, seq_len=LM_SEQ, vocab_size=cfg.vocab_size)
+    batches = DP_DOCS // LM_BATCH
+    torch.cuda.reset_peak_memory_stats()
+    out = {}
+    for tag, m in (("mesh", compat_mesh((TREE_SHARDS,), ("data",), devices=[dev])),
+                   ("single", None)):
+        ex = ProxyExtractor(make_select_step(cfg), ds, LM_BATCH, megabatch=batches, mesh=m)
+        out[tag] = timed_select(torch, ops, lambda: ex.extract(params, np.arange(DP_DOCS)))
+        count(out[tag][2])
+        if out[tag][2]["ce_proxy"] != batches:
+            raise AssertionError(f"[11d] {tag} extract: launches {out[tag][2]}, expected "
+                                 f"{batches} ce_proxy")
+    fm, fs = out["mesh"][0], out["single"][0]
+    if fm.shape != (DP_DOCS, cfg.d_model) or not bool(torch.isfinite(fm).all()):
+        raise AssertionError(f"[11d] features {tuple(fm.shape)} or non-finite")
+    if not torch.equal(fm, fs):
+        raise AssertionError("[11d] the mesh extract differs from the single-device extract")
+    peak_d = torch.cuda.max_memory_allocated() / 1e9
+    log(f"[11d] data-parallel extract of {DP_DOCS} docs ({batches} batches of {LM_BATCH} × "
+        f"{LM_SEQ}) at {LM_ARCH} width over a {TREE_SHARDS}-shard mesh of {dev}: "
+        f"{out['mesh'][1]:.3f}s, launches {out['mesh'][2]}; single device {out['single'][1]:.3f}s, "
+        f"launches {out['single'][2]}; features equal bit for bit; max_memory_allocated "
+        f"{peak_d:.2f} GB; {card}")
+    del params, fm, fs, out
+    torch.cuda.empty_cache()
+    return used, errs
+
+
 def main() -> None:
     import torch
 
@@ -1626,27 +2098,8 @@ def main() -> None:
         for d in CHECK_DIMS:
             x, sq, d_max, cur, chosen = operands(n, d)
             for tile in ("float32", "bfloat16"):
-                tol = gain_tol(x, n, float(d_max), tile == "bfloat16")
-                before = ops.LAUNCHES["fl_gains_argmax"]
-                g, pg, pi = ops.fl_gains_argmax(x, x, cur, sq, sq, d_max, chosen,
-                                                tile_dtype=tile, gains_impl="cuda")
-                torch.cuda.synchronize()
-                if ops.LAUNCHES["fl_gains_argmax"] != before + 1:
-                    raise AssertionError("fl_gains_argmax launch counter did not advance")
-                gp, pgp, pip = ops.fl_gains_argmax(x, x, cur, sq, sq, d_max, chosen,
-                                                   tile_dtype=tile, gains_impl="torch")
-                err = float((g - gp).abs().max())
-                scale = float(gp.abs().max())
-                if err > tol + 1e-5 * scale:
-                    raise AssertionError(f"fl_gains_argmax {tile} n={n} d={d}: max "
-                                         f"|err| {err} > {tol} + 1e-5·{scale}")
-                live = torch.where(chosen, float("-inf"), gp)
-                wk, wp = int(pi[torch.argmax(pg)]), int(pip[torch.argmax(pgp)])
-                if wk != wp and abs(float(live[wk]) - float(live[wp])) > tol:
-                    raise AssertionError(f"fl_gains_argmax {tile} n={n} d={d}: winner "
-                                         f"{wk} vs plain {wp} is not a near-tie")
-                if bool(chosen[wk]):
-                    raise AssertionError("a chosen candidate won the sweep")
+                err, pg = hold_argmax(torch, ops, x, cur, sq, d_max, chosen, tile,
+                                      f"fl_gains_argmax {tile} n={n} d={d}")
                 if n > 128 and float(pg[0]) > -1e29:
                     raise AssertionError(f"dead block reported {float(pg[0])}")
                 if tile == "float32":
@@ -1841,7 +2294,8 @@ def main() -> None:
 
     # -- 7. Covtype-shaped selection: the slice-3 sparse path ---------------
     peaks = (fp32_peak, bf16_peak, mem_bw)
-    results.update(covtype_selection(torch, ops, card, dev, peaks))
+    cov_feats, cov_y = covtype_pool(dev)
+    results.update(covtype_selection(torch, ops, card, dev, peaks, cov_feats, cov_y))
     for kname in ("topk_sim", "pairwise_l2"):
         max_err[kname] = max(max_err[kname], results[kname].pop("max_abs_err_main", 0.0))
 
@@ -1862,7 +2316,17 @@ def main() -> None:
         results[kname]["launches"] += n
     log(f"[10] phase total {time.perf_counter() - t0:.1f}s")
 
-    # -- 11. report ---------------------------------------------------------
+    # -- 11. distributed selection and the data-parallel extract -----------
+    t0 = time.perf_counter()
+    spread, spread_err = distributed_selection(torch, ops, card, dev, cov_feats)
+    for kname in ("topk_sim", "pairwise_l2", "ce_proxy"):
+        results[kname]["launches"] += spread[kname]
+    for kname, e in spread_err.items():
+        max_err[kname] = max(max_err[kname], e)
+    log(f"[11] phase total {time.perf_counter() - t0:.1f}s; launches {spread}")
+    del cov_feats
+
+    # -- 12. report ---------------------------------------------------------
     replaces = {
         "fl_gains": "src/repro/kernels/fl_gains.py:106",
         "fl_gains_argmax": "src/repro/kernels/fl_gains.py:197",
@@ -1877,7 +2341,8 @@ def main() -> None:
                "topk_sim": "src/repro_torch/kernels/csrc/topk_sim.cu",
                "pairwise_l2": "src/repro_torch/kernels/csrc/pairwise_l2.cu",
                "fl_replay": "src/repro_torch/kernels/csrc/fl_replay.cu"}
-    results["fl_gains_argmax"]["launches"] = main_launches["fl_gains_argmax"]
+    results["fl_gains_argmax"]["launches"] = (main_launches["fl_gains_argmax"]
+                                              + spread["fl_gains_argmax"])
     kernels = []
     for kname in replaces:
         r = results[kname]
@@ -1891,8 +2356,8 @@ def main() -> None:
         })
     if any(k["launches"] < 1 for k in kernels):
         raise AssertionError(f"a kernel of the path was never launched: {kernels}")
-    log(f"[11] ce_proxy fp32 at the main-path shape: {results['ce_proxy']['fp32']}")
-    log(f"[11] total {time.perf_counter() - t_start:.1f}s")
+    log(f"[12] ce_proxy fp32 at the main-path shape: {results['ce_proxy']['fp32']}")
+    log(f"[12] total {time.perf_counter() - t_start:.1f}s")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -3,7 +3,7 @@
 Port of ``repro.configs.registry`` (``ARCHS``, ``get_config``,
 ``smoke_config``).  Only the configurations the port runs are registered:
 the dense and MoE families with global attention.  The reference's other
-architectures come with their families (ROADMAP.md queue 1, item 5).
+architectures come with their families (ROADMAP.md queue 1, item 6).
 """
 from __future__ import annotations
 

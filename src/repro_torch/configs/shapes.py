@@ -2,7 +2,7 @@
 
 ``decode_*`` / ``long_*`` lower a serve step (one new token against a KV
 cache of length seq_len), NOT a train step; the port has no decode path
-yet (ROADMAP.md queue 1, item 6).  ``long_500k`` requires sub-quadratic
+yet (ROADMAP.md queue 1, item 7).  ``long_500k`` requires sub-quadratic
 attention.
 """
 from __future__ import annotations

@@ -38,10 +38,12 @@ def engine_config_from_reference(d: dict) -> EngineConfig:
     engine's tiles ``block_n`` and ``block_m`` are dropped: the port's
     kernel streams whole pool columns through blocks of its own width,
     which the plain twin shares.  Every other field carries over
-    unchanged.  An engine the port does not have yet raises
-    (``registry.NOT_PORTED`` names its item).
+    unchanged.  A tree provenance (``TreeSelectConfig``) converts its
+    nested leaf engine the same way.  An unknown engine raises.
     """
     d = dict(d)
+    if d.get("name") == "tree" and d.get("local") is not None:
+        d["local"] = engine_config_from_reference(d["local"]).to_dict()
     if d.get("name") == "device":
         d.pop("block_n", None)
         d.pop("block_m", None)

@@ -26,6 +26,7 @@ from repro_torch.core.engines import (
     EngineConfig,
     auto_engine_config,
     make_engine,
+    normalize_for_metric,
 )
 from repro_torch.core.engines.legacy import LegacyEngineKnobs, resolve_engine_config
 
@@ -189,7 +190,120 @@ class CraigSelector:
             sel.n_dropped = int(n_orig - len(keep_idx))
         return sel
 
+    def select_distributed(self, feats, mesh, axis_name: str = "data") -> CoresetSelection:
+        """Two-round selection over ``mesh[axis_name]`` (``core.distributed``)
+        with the output contract of :meth:`select`.
+
+        ``feats`` is the global (n, d) pool; budgets derive from
+        ``config.fraction``.  Round 1 runs the engine the config resolves
+        to (``ROUND1_ENGINES``; 'auto' picks per *shard* pool size, and
+        lazy or stochastic fall back to the auto pick with a warning).
+        ``metric='cosine'`` unit-normalizes the pool and reports coverage
+        in cosine-distance units.
+        """
+        from repro_torch.core.distributed import distributed_select, resolve_round1_config
+
+        cfg = self.config
+        if cfg.mode == "cover":
+            raise ValueError(
+                "select_distributed supports mode='budget' only — cover "
+                "needs exact prefix coverages on the global pool"
+            )
+        feats = normalize_for_metric(
+            torch.as_tensor(feats, dtype=torch.float32).to(self.device), cfg.metric
+        )
+        n = feats.shape[0]
+        n_shards = int(mesh.shape[axis_name])
+        r_final = self._budget(n)
+        r_local = max(1, min(n // n_shards, int(r_final * 2 / n_shards) + 1))
+        typed = resolve_engine_config(cfg)
+        engine_cfg = resolve_round1_config(
+            "auto" if typed is None else typed, {}, n // n_shards,
+            device=mesh.axis_devices(axis_name)[0],
+        )
+        res = distributed_select(
+            feats, mesh, r_local=r_local, r_final=r_final, axis_name=axis_name,
+            local_engine=engine_cfg,
+            # Σ min ‖x−m‖²/2 on the unit sphere is Σ min (1 − cos θ)
+            squared_coverage=cfg.metric == "cosine",
+        )
+        return self._distributed_result(res, r_final, engine_cfg.to_dict())
+
+    def select_tree(
+        self,
+        feats,
+        fanouts: tuple[int, ...],
+        *,
+        mesh=None,
+        compress: str = "int8",
+        r_node: int | None = None,
+    ) -> CoresetSelection:
+        """Hierarchical tree selection (``distributed.tree_select``) with the
+        output contract of :meth:`select`.
+
+        ``fanouts`` is the leaf → root merge tree (``(n_shards,)`` equals
+        the two-round path bit for bit on the fp32 wire); ``mesh=None``
+        runs the host driver on the selector's device (ragged pools fine),
+        a level-axis mesh from ``tree_select.tree_mesh`` the mesh driver.
+        Candidates ship as int8 rows by default (``compress='none'``: fp32).
+        ``CoresetSelection.engine`` is a ``TreeSelectConfig`` dict with the
+        leaf engine nested under ``local``.
+        """
+        from repro_torch.core.distributed import resolve_round1_config
+        from repro_torch.distributed.tree_select import (
+            TreeSelectConfig,
+            TreeTopology,
+            tree_select_host,
+            tree_select_mesh,
+        )
+
+        cfg = self.config
+        if cfg.mode == "cover":
+            raise ValueError(
+                "select_tree supports mode='budget' only — cover needs "
+                "exact prefix coverages on the global pool"
+            )
+        topology = TreeTopology(tuple(fanouts))
+        feats = normalize_for_metric(
+            torch.as_tensor(feats, dtype=torch.float32).to(self.device), cfg.metric
+        )
+        n = feats.shape[0]
+        n_leaves = topology.n_leaves
+        r_final = self._budget(n)
+        r_local = max(1, min(n // n_leaves, int(r_final * 2 / n_leaves) + 1))
+        typed = resolve_engine_config(cfg)
+        leaf_device = self.device if mesh is None else mesh.flat_devices()[0]
+        engine_cfg = resolve_round1_config(
+            "auto" if typed is None else typed, {}, n // n_leaves, device=leaf_device
+        )
+        kwargs = dict(
+            r_node=r_node, local_engine=engine_cfg, compress=compress,
+            squared_coverage=cfg.metric == "cosine",
+        )
+        if mesh is None:
+            res = tree_select_host(feats, topology, r_local, r_final, **kwargs)
+        else:
+            res = tree_select_mesh(feats, mesh, topology, r_local, r_final, **kwargs)
+        # the host and mesh drivers have no process failure domain, so the
+        # degradation fields keep their clean defaults
+        provenance = TreeSelectConfig(
+            fanouts=topology.fanouts, compress=compress, local=engine_cfg.to_dict(),
+        )
+        return self._distributed_result(res, r_final, provenance.to_dict())
+
     # -- internals ----------------------------------------------------------
+
+    @staticmethod
+    def _distributed_result(res, r_final: int, engine: dict) -> CoresetSelection:
+        coverage = float(res.coverage)
+        return CoresetSelection(
+            indices=res.indices.cpu().numpy().astype(np.int64),
+            weights=res.weights.cpu().numpy().astype(np.float32),
+            order=np.arange(r_final),
+            coverage=coverage,
+            epsilon_hat=coverage,
+            engine=engine,
+        )
 
     def _budget(self, n: int) -> int:
         return max(1, int(round(self.config.fraction * n)))

@@ -3,8 +3,9 @@
 Port of ``repro.core.engines``: the shared protocol (``base``), the
 registry with the ``engine='auto'`` policy (``registry``), the engines —
 matrix, lazy, stochastic, features, device, sparse and streaming — and the
-legacy flat-knob shim (``legacy``).  The tree engine is not ported yet
-(ROADMAP.md queue 1); naming it raises.
+legacy flat-knob shim (``legacy``).  Tree selection's provenance
+(``distributed.tree_select.TreeSelectConfig``) restores through
+``engine_config_from_dict`` like an engine's.
 """
 from repro_torch.core.engines.base import (
     Capabilities,

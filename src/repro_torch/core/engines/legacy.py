@@ -34,7 +34,12 @@ import warnings
 from repro_torch.core.engines.base import EngineConfig
 from repro_torch.core.engines.registry import get_engine
 
-__all__ = ["IMPL_FROM_REFERENCE", "LegacyEngineKnobs", "resolve_engine_config"]
+__all__ = [
+    "IMPL_FROM_REFERENCE",
+    "LegacyEngineKnobs",
+    "resolve_distributed_engine",
+    "resolve_engine_config",
+]
 
 # The reference's kernel routes (``FeaturesConfig.gains_impl``,
 # ``SparseConfig.impl``, ``StreamingConfig.finalize_impl``) and their
@@ -131,5 +136,58 @@ def resolve_engine_config(cfg, _stacklevel: int = 3) -> EngineConfig | None:
         f"deprecated; use CraigConfig(engine={typed!r})",
         DeprecationWarning,
         stacklevel=_stacklevel,
+    )
+    return typed
+
+
+_DISTRIBUTED_KNOBS = ("topk_k", "device_q", "device_stale_tol")
+
+
+def resolve_distributed_engine(local_engine, knobs: dict) -> EngineConfig | None:
+    """``distributed_select``'s legacy flat-kwarg surface → typed config.
+
+    ``local_engine`` is a typed EngineConfig, ``'auto'`` (returns None —
+    the caller resolves per shard via ``auto_engine_config``), or a legacy
+    string combined with flat knob kwargs collected in ``knobs``.  The
+    kernel routes keep their 'auto' default, which
+    ``core.distributed.normalize_round1_config`` resolves on the shard's
+    device.
+    """
+    unknown = set(knobs) - set(_DISTRIBUTED_KNOBS)
+    if unknown:
+        raise TypeError(
+            f"distributed_select got unexpected kwargs {sorted(unknown)}"
+        )
+    if isinstance(local_engine, EngineConfig):
+        if knobs:
+            raise TypeError(
+                "pass either a typed EngineConfig or legacy flat engine "
+                "kwargs, not both"
+            )
+        return local_engine
+    if local_engine == "auto":
+        if knobs:
+            raise TypeError(
+                "legacy flat engine kwargs require a legacy local_engine "
+                "string; with local_engine='auto' pass a typed EngineConfig"
+            )
+        return None
+    if local_engine not in _LEGACY_ENGINE_STRINGS:
+        raise ValueError(f"unknown local_engine {local_engine!r}")
+    cfg_cls = get_engine(local_engine).config_cls
+    if local_engine == "sparse":
+        typed = cfg_cls(k=knobs.get("topk_k", 64))
+    elif local_engine == "device":
+        typed = cfg_cls(
+            q=knobs.get("device_q", 1),
+            stale_tol=knobs.get("device_stale_tol", 0.7),
+        )
+    else:
+        typed = cfg_cls()
+    warnings.warn(
+        f"distributed_select(local_engine={local_engine!r}, ...) with flat "
+        f"engine kwargs is deprecated; pass local_engine={typed!r}",
+        DeprecationWarning,
+        stacklevel=3,
     )
     return typed

@@ -29,10 +29,8 @@ __all__ = [
 _REGISTRY: dict[str, type[SelectionEngine]] = {}
 
 # Engines of the reference that this package does not have yet, with the
-# ROADMAP item that ports them.
-NOT_PORTED = {
-    "tree": "ROADMAP.md queue 1, 'select_distributed and select_tree'",
-}
+# ROADMAP item that ports them (none left).
+NOT_PORTED: dict[str, str] = {}
 
 
 def register_engine(cls: type[SelectionEngine]) -> type[SelectionEngine]:
@@ -78,12 +76,21 @@ def make_engine(config: EngineConfig) -> SelectionEngine:
 
 
 def engine_config_from_dict(d: dict) -> EngineConfig:
-    """Inverse of ``EngineConfig.to_dict`` — restores the typed config."""
+    """Inverse of ``EngineConfig.to_dict`` — restores the typed config.
+
+    ``name == 'tree'`` restores a ``TreeSelectConfig``: tree selection
+    orchestrates the round-1 engines and is no registered engine, but its
+    provenance rides the same paths (imported here, since the tree module
+    imports the engines)."""
     d = dict(d)
     try:
         name = d.pop("name")
     except KeyError:
         raise ValueError(f"engine config dict has no 'name': {d!r}") from None
+    if name == "tree":
+        from repro_torch.distributed.tree_select import TreeSelectConfig
+
+        return TreeSelectConfig(**{**d, "fanouts": tuple(d["fanouts"])})
     return get_engine(name).config_cls(**d)
 
 

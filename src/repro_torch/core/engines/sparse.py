@@ -38,6 +38,7 @@ __all__ = [
     "SparseConfig",
     "SparseEngine",
     "TIMINGS",
+    "assign_to_medoids",
     "topk_graph",
     "greedy_fl_topk",
     "sparse_greedy_fl",
@@ -246,9 +247,10 @@ def sparse_greedy_fl(
     return _result(sel, gains, weights, coverage)
 
 
-def _blocked_assignment(
-    feats: torch.Tensor, sel, block: int | None = None, *, impl: str = "auto"
-) -> tuple[np.ndarray, np.ndarray]:
+def assign_to_medoids(
+    feats: torch.Tensor, sel: torch.Tensor, block: int | None = None, *,
+    impl: str = "auto",
+) -> tuple[torch.Tensor, torch.Tensor]:
     """Exact nearest-selected-medoid assignment on the features' device.
 
     Distances of a block of rows to every medoid come from
@@ -257,11 +259,9 @@ def _blocked_assignment(
     distance matrix near :data:`ASSIGN_BLOCK_BYTES`.
 
     Returns (assign (n,) int64 positions into ``sel``, min_dist (n,)
-    float64), on the host.
+    fp32), on the features' device.
     """
-    feats = torch.as_tensor(feats, dtype=torch.float32)
-    sel_t = torch.as_tensor(np.asarray(sel, np.int64), device=feats.device)
-    sf = feats[sel_t]
+    sf = feats[sel.to(feats.device)]
     n, r = feats.shape[0], sf.shape[0]
     if block is None:
         block = max(1, ASSIGN_BLOCK_BYTES // (4 * r))
@@ -271,8 +271,19 @@ def _blocked_assignment(
         dmin, amin = torch.min(dist, dim=1)
         assign.append(amin)
         mind.append(dmin)
-    return (torch.cat(assign).cpu().numpy().astype(np.int64),
-            torch.cat(mind).cpu().numpy().astype(np.float64))
+    return torch.cat(assign), torch.cat(mind)
+
+
+def _blocked_assignment(
+    feats: torch.Tensor, sel, block: int | None = None, *, impl: str = "auto"
+) -> tuple[np.ndarray, np.ndarray]:
+    """:func:`assign_to_medoids` of host indices ``sel``, returned on the
+    host: (assign (n,) int64, min_dist (n,) float64)."""
+    feats = torch.as_tensor(feats, dtype=torch.float32)
+    sel_t = torch.as_tensor(np.asarray(sel, np.int64), device=feats.device)
+    assign, mind = assign_to_medoids(feats, sel_t, block, impl=impl)
+    return (assign.cpu().numpy().astype(np.int64),
+            mind.cpu().numpy().astype(np.float64))
 
 
 def sparse_greedy_fl_features(

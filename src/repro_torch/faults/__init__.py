@@ -2,7 +2,8 @@
 
 A deterministic, seedable fault-injection registry (:class:`FaultPlan`,
 consulted by the :func:`fault_point`/:func:`fault_value` hooks at the
-refresh worker, feature extraction and the coreset service's ingest) plus
+refresh worker, feature extraction, the coreset service's ingest and the
+process tree's store reads and publishes) plus
 the :class:`FailurePolicy` record that ``AsyncRefresher``, the trainer and
 the coreset service interpret when real work fails.
 """

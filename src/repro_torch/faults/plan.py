@@ -18,10 +18,11 @@ packages):
 ``refresh.worker``        per-attempt, inside ``AsyncRefresher``'s retry loop
 ``extract.features``      value hook on ``ProxyExtractor.extract`` output
 ``service.ingest``        top of ``CoresetService``'s coalesced ingest drain
+``kv.get``                every store read of ``distributed.process_tree``
+                          (``drop_key`` simulates a missing key)
+``tree.publish``          before a process-tree node publishes its candidates
+                          (``kill`` is the chaos run's preemption)
 ========================  ====================================================
-
-The reference's ``kv.get`` and ``tree.publish`` sites come with the
-distributed selection, which the port does not have yet.
 
 Determinism: firing is decided by per-site *call counters* (``on_calls`` /
 ``every``) or a per-spec seeded RNG (``p``) — two identical plans over the

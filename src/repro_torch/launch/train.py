@@ -13,8 +13,10 @@ per-epoch coreset refresh (``--craig-fraction``, ``--select-every``),
 micro-batched gradient accumulation, checkpoint/restart (``--ckpt``) and
 SIGTERM → emergency save.  The trainer runs on ``--device`` (default
 ``cuda``; ``cpu`` on request); on a card the refresh's proxies go through
-the ``ce_proxy`` kernel.  The reference's multi-host mesh and
-``--dry-run`` lowering are not ported (ROADMAP.md queue 1, items 4 and 7).
+the ``ce_proxy`` kernel.  The reference's multi-host training mesh (model
+parallelism over several cards) and ``--dry-run`` lowering are not ported
+(ROADMAP.md queue 1, 'Model parallelism and multi-GPU meshes', and item 8);
+distributed *selection* is (``launch.tree``).
 """
 from __future__ import annotations
 

@@ -14,7 +14,7 @@ from typing import Literal
 __all__ = ["ModelConfig", "require_ported"]
 
 # The ROADMAP item that ports the families and layer kinds the port lacks.
-_FAMILY_ITEM = "ROADMAP.md queue 1, item 5 'the other families'"
+_FAMILY_ITEM = "ROADMAP.md queue 1, item 6 'the other families'"
 _PORTED_FAMILIES = ("dense", "moe")
 
 

@@ -13,7 +13,9 @@ the tests and ``chip_smoke.py`` hold both packages to:
 
 Stochastic greedy is held to the same rule with its step samples: each
 pick is the best of its own step's candidates, so the best is taken over
-that sample.
+that sample.  A weighted greedy (the merge rounds of distributed
+selection, each candidate standing for γ points) is held to it with its
+point weights, and a tolerance scaled by the largest weight.
 """
 from __future__ import annotations
 
@@ -33,11 +35,12 @@ def _dist64(x: torch.Tensor) -> torch.Tensor:
     return torch.cdist(x, x)
 
 
-def fp64_gains(x: torch.Tensor, prefix) -> torch.Tensor:
+def fp64_gains(x: torch.Tensor, prefix, weights=None) -> torch.Tensor:
     """(n,) fp64 marginal gains given the selected ``prefix``; chosen → −inf.
 
-    gain(e) = Σ_i relu(min_{s∈prefix} D_is − D_ie), with D_is := +max D
-    for an empty prefix (the d_max offset cancels).
+    gain(e) = Σ_i w_i·relu(min_{s∈prefix} D_is − D_ie) (w_i = 1 without
+    ``weights``), with D_is := +max D for an empty prefix (the d_max
+    offset cancels).
     """
     dist = _dist64(x)
     prefix = torch.as_tensor(prefix, dtype=torch.int64, device=dist.device)
@@ -45,7 +48,10 @@ def fp64_gains(x: torch.Tensor, prefix) -> torch.Tensor:
         cover = dist[:, prefix].min(dim=1).values
     else:
         cover = torch.full_like(dist[:, 0], float(dist.max()) + 1e-6)
-    g = torch.clamp(cover[:, None] - dist, min=0.0).sum(dim=0)
+    gap = torch.clamp(cover[:, None] - dist, min=0.0)
+    if weights is not None:
+        gap = gap * torch.as_tensor(weights, dtype=torch.float64, device=gap.device)[:, None]
+    g = gap.sum(dim=0)
     g[prefix] = float("-inf")
     return g
 
@@ -56,13 +62,15 @@ def coverage64(x: torch.Tensor, indices) -> float:
     return float(_dist64(x)[:, idx].min(dim=1).values.sum())
 
 
-def first_divergence(x: torch.Tensor, idx_a, idx_b, tol: float, candidates=None):
+def first_divergence(x: torch.Tensor, idx_a, idx_b, tol: float, candidates=None,
+                     weights=None):
     """Position of the first index divergence, or None when equal.
 
     Raises AssertionError when the two picks at the divergence are not a
     near-tie (either is more than ``tol`` below the fp64 best gain).
     ``candidates`` (stochastic greedy): row t is the sample drawn for
-    position t, and the best gain is taken over it.
+    position t, and the best gain is taken over it.  ``weights``: the
+    point weights of a weighted greedy.
     """
     a = [int(i) for i in idx_a]
     b = [int(i) for i in idx_b]
@@ -71,7 +79,7 @@ def first_divergence(x: torch.Tensor, idx_a, idx_b, tol: float, candidates=None)
     t = next((k for k in range(len(a)) if a[k] != b[k]), None)
     if t is None:
         return None
-    g = fp64_gains(x, a[:t])
+    g = fp64_gains(x, a[:t], weights)
     pool = g if candidates is None else g[
         torch.as_tensor(candidates[t], dtype=torch.int64, device=g.device)]
     best = float(pool.max())

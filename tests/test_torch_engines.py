@@ -163,9 +163,9 @@ def test_auto_policy_table(n, backend, mode, expected):
 
 def test_auto_policy_past_sparse_threshold_raises():
     # past 2·10⁵ points the sparse engine (ported with slice 3) takes over;
-    # an engine not ported yet still raises
+    # 'tree' names a provenance record, not an engine, as in the reference
     assert E.auto_engine_config(300_000, backend="cuda") == E.SparseConfig()
-    with pytest.raises(ValueError, match="not ported"):
+    with pytest.raises(ValueError, match="unknown engine 'tree'"):
         E.get_engine("tree")
 
 
@@ -179,6 +179,9 @@ def test_config_round_trip_and_spec():
     )
     assert E.list_engines() == ("matrix", "lazy", "stochastic", "features", "device",
                                 "sparse", "streaming")
-    assert E.registry.NOT_PORTED.keys() == {"tree"}
-    with pytest.raises(ValueError, match="not ported"):
-        E.get_engine("tree")
+    assert E.registry.NOT_PORTED == {}
+    from repro_torch.distributed.tree_select import TreeSelectConfig
+
+    tree = TreeSelectConfig(fanouts=(4, 2), compress="none",
+                            local=E.DeviceConfig(q=4).to_dict(), missing_pids=(3,))
+    assert E.EngineConfig.from_dict(tree.to_dict()) == tree

@@ -49,7 +49,10 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
         "repro_torch.launch.train, repro_torch.models.moe, repro_torch.configs.shapes, "
         "repro_torch.core.engines.lazy, repro_torch.core.engines.stochastic, "
         "repro_torch.core.engines.legacy, repro_torch.core.facility_location, "
-        "repro_torch.faults.plan\n"
+        "repro_torch.faults.plan, repro_torch.core.distributed, repro_torch.distributed, "
+        "repro_torch.distributed.compression, repro_torch.distributed.tree_select, "
+        "repro_torch.distributed.process_tree, repro_torch.launch.tree, "
+        "repro_torch.launch.mesh\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
         "assert not bad, bad\n"
     )

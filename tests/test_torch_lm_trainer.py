@@ -35,6 +35,7 @@ from repro_torch.core.extract import ProxyExtractor
 from repro_torch.core.refresh import AsyncRefresher
 from repro_torch.data.synthetic import TokenStream
 from repro_torch.faults import FailurePolicy
+from repro_torch.launch.mesh import compat_mesh
 from repro_torch.models import init_params
 from repro_torch.models import model as tmodel
 from repro_torch.models.config import ModelConfig
@@ -166,8 +167,11 @@ def test_extractor_matches_reference_and_per_batch(monkeypatch):
         got = tx.extract(tp, pool)
         assert got.shape == (13, 32)
         np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-5)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ProxyExtractor(make_select_step(CFG), ds, 4, mesh=object())
+    # the data-parallel extract over a 2-shard CPU mesh is the same sweep
+    mesh = compat_mesh((2,), ("data",), devices=["cpu"])
+    got_mesh = ProxyExtractor(make_select_step(CFG, "auto"), ds, 4, megabatch=2,
+                              mesh=mesh).extract(tp, pool)
+    assert torch.equal(got_mesh, got)
 
 
 # -- checkpointing --------------------------------------------------------------

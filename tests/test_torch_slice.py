@@ -27,12 +27,14 @@ from repro.core import craig as jcraig
 from repro.core import proxy as jproxy
 from repro.core import engines as JE
 from repro.data.synthetic import make_classification as jmake
+from repro.distributed import tree_select as JT
 from repro.optim import variance_reduced as jvr
 from repro_torch import convert, parity
 from repro_torch.core import engines as E
 from repro_torch.core.craig import CraigConfig, CraigSelector
 from repro_torch.core.proxy import classifier_last_layer_proxy, convex_feature_proxy
 from repro_torch.data.synthetic import make_classification
+from repro_torch.distributed import tree_select as T
 from repro_torch.examples.quickstart import logistic, schedule_for
 from repro_torch.optim import ig_run, saga_run, svrg_run
 
@@ -205,12 +207,17 @@ def test_engine_configs_carry_across():
         (JE.StreamingConfig(finalize_impl="jax"), E.StreamingConfig(finalize_impl="torch")),
         (JE.LazyConfig(), E.LazyConfig()),
         (JE.StochasticConfig(delta=0.05), E.StochasticConfig(delta=0.05)),
+        # a tree provenance, its leaf engine nested (ported with slice 9)
+        (JT.TreeSelectConfig(fanouts=(4, 2), local=JE.DeviceConfig(gains_impl="jax").to_dict(),
+                             degraded=True, missing_pids=(3,), quorum=0.875),
+         T.TreeSelectConfig(fanouts=(4, 2), local=E.DeviceConfig(gains_impl="torch").to_dict(),
+                            degraded=True, missing_pids=(3,), quorum=0.875)),
     ]
     for ref_cfg, want in cases:
         assert convert.engine_config_from_reference(ref_cfg.to_dict()) == want
-    # an engine the port does not have yet still raises
-    with pytest.raises(ValueError, match="not ported"):
-        convert.engine_config_from_reference({"name": "tree", "fanouts": [2]})
+    # an engine neither package has raises
+    with pytest.raises(ValueError, match="unknown engine"):
+        convert.engine_config_from_reference({"name": "bogus"})
 
 
 def test_reference_weights_give_the_same_port_loss():
