@@ -14,8 +14,8 @@ version:
      pool sizes, then timed with CUDA events at the main-path shape beside
      their plain versions and bounds; ``ce_proxy`` (bf16 and fp32) against
      its plain version at T = 4,096, D = 2048, V = 151,936, at the (D,
-     padded V) of the five configs of phase 9 (D 2,048 to 6,144) and at
-     ragged shapes up to D = 8,200, then timed the same way, the five
+     padded V) of the six configs of phase 9 (D 2,048 to 6,144) and at
+     ragged shapes up to D = 8,200, then timed the same way, the six
      configs' shapes and the SIMT route's beside the einsum head
      (``core.proxy.lm_unembed_input_proxy``) with each bf16 route's cluster
      size and clusters in flight;
@@ -53,10 +53,11 @@ version:
      service's shape (with its issue bound, registers, CTAs per SM and
      the cuBLAS product of its shape); a ``launch/serve.py --coreset
      --device cuda`` round trip in a subprocess;
-  9. LM coreset training at the published widths, slice 7's path: five
-     more registered configs — qwen2-7b, granite-3-8b, nemotron-4-15b and
-     the MoE configs moonshot-v1-16b-a3b and dbrx-132b — at full width with
-     depth cut to fit the card (WIDE_LM), seeded on the card; per config
+  9. LM coreset training at the published widths, slice 7's path: six
+     more registered configs — qwen2-7b, granite-3-8b, nemotron-4-15b, the
+     MoE configs moonshot-v1-16b-a3b and dbrx-132b, and (slice 10) the
+     Griffin hybrid recurrentgemma-9b — at full width with depth cut to fit
+     the card (WIDE_LM), seeded on the card; per config
      the fused proxies held to the einsum proxies and both heads timed,
      then ``Trainer.run`` through two refreshes and one install (dbrx-132b:
      one refresh through ``ProxyExtractor`` and ``CraigSelector``, forward
@@ -83,7 +84,19 @@ version:
      degrades the survivors under quorum; (d) ``ProxyExtractor(mesh=...)``
      at qwen3-1.7b width (``ce_proxy``) held bit for bit to the
      single-device extract;
- 12. the report: one JSON line per the six kernels, then the last line,
+ 12. slice 10's serving path (``serve.make_prefill_step``,
+     ``models.decode_step``, ``serve.greedy_generate``): (a) qwen3-1.7b
+     and (b) recurrentgemma-9b at full published depth and width — prefill
+     timed, a teacher-forced decode held to ``forward`` (and prefill's last
+     logits to the decode path's), greedy generation run twice and equal;
+     (c) one recurrentgemma-9b period teacher-forced past its 2,048-slot
+     ring, and ``forward`` past 2·window through the blockwise windowed
+     path, one layer's blockwise attention held to the dense one; (d)
+     moonshot-v1-16b-a3b at published width, 8 of 48 layers (the MoE FFN
+     in decode); (e) ``launch/serve.py --arch qwen3-1.7b --smoke`` and
+     ``examples/serve_batched.py --window 8`` subprocesses on the card.
+     No kernel runs on this path (the reference's is plain JAX too);
+ 13. the report: one JSON line per the six kernels, then the last line,
      {"ok": true, "device": {...}}.
 
 Before phases 2–8, ``kernels`` compares ``topk_sim`` (both list routes:
@@ -122,13 +135,16 @@ TIMED_LAUNCHES = 25
 LM_ARCH = "qwen3-1.7b"
 LM_DOCS, LM_SEQ, LM_BATCH = 512, 512, 8
 LM_FRACTION = 0.3
-# 64 full-data steps (epoch 0; selection v1 at step 0), 19 steps on the
-# first coreset (epoch 1; v1 installed, v2 selected at step 64), and the
-# first step of epoch 2 (v2 installed, v3 selected): three refreshes.
+# The horizon of phase 10's learning-rate schedule.
 LM_STEPS = 84
-# The asynchronous run: epoch 0 while v1 is selected in the background,
-# then the install of v1 (and v2 started) at step 64.
-LM_ASYNC_STEPS = 65
+# Phase 6's corpus (cut from LM_DOCS to hold the script near 11 minutes
+# once phase 12 came, PERF.md §4): 32 full-data steps (epoch 0; selection
+# v1 at step 0), 9 steps on the first coreset of 77 docs (epoch 1; v1
+# installed, v2 selected at step 32), and the first step of epoch 2 (v2
+# installed, v3 selected): three refreshes.  The asynchronous run: epoch 0
+# while v1 is selected in the background, then the install of v1 (and v2
+# started) at step 32.
+MAIN_DOCS, MAIN_STEPS, MAIN_ASYNC_STEPS = 256, 42, 33
 CE_SHAPES = (  # (T, D, V, valid_v): main-path shape, then ragged ones
     (4096, 2048, 151_936, 151_936),
     # the same with valid_v at qwen3's tokenizer vocabulary (the config pads
@@ -153,6 +169,7 @@ CE_SHAPES = (  # (T, D, V, valid_v): main-path shape, then ragged ones
     (4096, 6144, 256_000, 256_000),
     (4096, 2048, 163_840, 163_840),
     (4096, 6144, 100_352, 100_352),
+    (4096, 4096, 256_000, 256_000),  # recurrentgemma-9b (8-CTA clusters)
     # ragged wide shapes: route 2 just past 2,048 and just past 4,096
     # columns (a non-portable 9-CTA cluster); route 2 with D % 8 != 0 (the
     # staged route); the SIMT route past 8,192
@@ -166,7 +183,8 @@ CE_SHAPES = (  # (T, D, V, valid_v): main-path shape, then ragged ones
 CE_WIDE = {"qwen2-7b": (3584, 152_064, 152_064), "granite-3-8b": (4096, 49_280, 49_155),
            "nemotron-4-15b": (6144, 256_000, 256_000),
            "moonshot-v1-16b-a3b": (2048, 163_840, 163_840),
-           "dbrx-132b": (6144, 100_352, 100_352)}
+           "dbrx-132b": (6144, 100_352, 100_352),
+           "recurrentgemma-9b": (4096, 256_000, 256_000)}
 CE_TIMED = {"bfloat16": 5, "float32": 3}  # CUDA-event-timed launches
 PROXY_TIMED = 5  # CUDA-event-timed calls of each proxy path at full width
 # Device memory still allocated after a trainer is deleted; its parameters
@@ -177,11 +195,13 @@ FREED_GB = 4.0
 # AdamW moments) plus ~6 GB of activations fit one 80 GB card: qwen2-7b 8
 # of 28 layers (2.95 B parameters), granite-3-8b 8 of 40 (2.00 B),
 # nemotron-4-15b 2 of 32 (3.93 B, its 3.1 B of vocabulary tables
-# dominate), moonshot-v1-16b-a3b 4 of 48 (3.02 B, C = 64).  dbrx-132b keeps
-# 2 of 40 layers (7.75 B, 31.0 GB in fp32) and runs forward only: one of
-# its layers with AdamW alone needs 71.9 GB.
+# dominate), moonshot-v1-16b-a3b 4 of 48 (3.02 B, C = 64), recurrentgemma-9b
+# one (rglru, rglru, local_attn) period, 3 of 38 layers (2.75 B).  dbrx-132b
+# keeps 2 of 40 layers (7.75 B, 31.0 GB in fp32) and runs forward only: one
+# of its layers with AdamW alone needs 71.9 GB.
 WIDE_LM = {"qwen2-7b": (8, True), "granite-3-8b": (8, True), "nemotron-4-15b": (2, True),
-           "moonshot-v1-16b-a3b": (4, True), "dbrx-132b": (2, False)}
+           "moonshot-v1-16b-a3b": (4, True), "dbrx-132b": (2, False),
+           "recurrentgemma-9b": (3, True)}
 # A pool of 64 docs, 8 batches of 8 × 512 tokens a refresh: epoch 0 is 8
 # full-data steps (v1 selected at step 0); step 9 installs v1 and selects
 # v2.  Two refreshes, one install.
@@ -246,6 +266,30 @@ PROC_N, PROC_D, PROC_R_LOCAL, PROC_R_FINAL = 65_536, 64, 256, 512
 PROC_TIMEOUT = 300
 DP_DOCS = 128
 F_BLOCK = 8192
+
+# Phase 12, serving.  Per cell: (arch, layers kept or None for the
+# published depth, prefill (batch, tokens), teacher-forced decode (batch,
+# tokens) held to forward, greedy_generate (batch, prompt, new), runs of
+# it that must agree, the forward-against-decode bound).  qwen3-1.7b
+# (8.1 GB fp32) and recurrentgemma-9b (41.8 GB) serve at full depth;
+# moonshot-v1-16b-a3b (115.6 GB in fp32) keeps 8 of 48 layers.  Bounds,
+# max|Δ|/max|ref|: the reference's (tests/test_models_consistency.py), 2e-2
+# and 4e-2 for the recurrent families, whose scans reassociate, at its
+# depth of 2 and 5 layers.  Over recurrentgemma-9b's 38 bf16 layers the
+# seeded model's error grows like a random walk (1.7e-2, 2.3e-2, 3.2e-2,
+# 5.2e-2, 6.5e-2 at 3, 6, 12, 24, 38 layers on the H100, PERF.md): its
+# full-depth run is held to 4e-2·√(38/5) = 0.110.  qwen3-1.7b's 28 layers
+# stay within 2e-2 (1.8e-2).
+SERVE_CELLS = {
+    "(a)": ("qwen3-1.7b", None, (8, 512), (2, 64), (8, 64, 128), 2, 2e-2),
+    "(b)": ("recurrentgemma-9b", None, (2, 4096), (2, 64), (4, 64, 64), 2,
+            4e-2 * math.sqrt(38 / 5)),
+    "(d)": ("moonshot-v1-16b-a3b", 8, (8, 512), (2, 32), (4, 32, 32), 1, 2e-2),
+}
+# (c): one recurrentgemma-9b period teacher-forced past its 2,048-slot ring,
+# the last RING_KEEP steps held to forward within RING_TOL (the reference's
+# recurrent-family bound); forward at BLOCK_T > 2·window.
+RING_T, RING_KEEP, BLOCK_T, RING_TOL = 2112, 64, 5120, 4e-2
 
 # Published dense peaks (NVIDIA data sheet, H100 SXM): fp32 on the CUDA
 # cores, bf16 on the tensor cores, and device-memory bandwidth, keyed by
@@ -584,10 +628,12 @@ def proxy_ms(torch, ops, cfg, params, batch, whole: bool) -> dict:
 
 def count_params(cfg, params) -> int:
     """The parameters' element count, held to the config's: param_count()
-    counts the real vocabulary, the tables hold padded rows."""
+    counts the real vocabulary, the tables hold padded rows; it leaves out
+    each RG-LRU layer's Λ and gate biases (3·d_rnn), as the reference's."""
     n = sum(p.numel() for p in params.values())
     tables = 1 if cfg.tie_embeddings else 2
     expected = cfg.param_count() + tables * (cfg.padded_vocab - cfg.vocab_size) * cfg.d_model
+    expected += 3 * (cfg.d_rnn or cfg.d_model) * cfg.layer_kinds.count("rglru")
     if n != expected:
         raise AssertionError(f"{cfg.name}: {n} parameters, config says {expected}")
     return n
@@ -2037,6 +2083,374 @@ def distributed_selection(torch, ops, card, dev, feats) -> dict:
     return used, errs
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: serving (prefill and KV-cache decode)
+# ---------------------------------------------------------------------------
+
+
+def rel_err(torch, got, want) -> float:
+    """max|got − want| / max|want|: the reference's forward-against-decode
+    measure (``tests/test_models_consistency.py``)."""
+    return float((got - want).abs().max()) / (float(want.abs().max()) + 1e-9)
+
+
+def serve_params(torch, cfg, dev):
+    """Seeded fp32 weights of ``cfg`` on the card, counted against the config."""
+    from repro_torch.models import init_params
+
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    return params, count_params(cfg, params)
+
+
+def seeded_tokens(torch, cfg, dev, B: int, T: int, seed: int):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randint(0, cfg.vocab_size, (B, T), device=dev, generator=gen)
+
+
+def forced_decode(torch, cfg, params, tokens, keep: int) -> tuple:
+    """Teacher-force ``tokens`` (B, T) through ``decode_step`` from a fresh
+    serve state of T slots; returns the last ``keep`` steps' logits (B,
+    keep, V) and the ms a step (host clock, synchronised)."""
+    from repro_torch.models import decode_step, init_serve_state
+
+    B, T = tokens.shape
+    outs = []
+    with torch.inference_mode():
+        state = init_serve_state(cfg, B, T, tokens.device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for t in range(T):
+            logits, state = decode_step(params, cfg, state, {"tokens": tokens[:, t:t + 1]})
+            if t >= T - keep:
+                outs.append(logits)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0) / T
+    if state["pos"] != T:
+        raise AssertionError(f"{cfg.name}: decode state at pos {state['pos']}, expected {T}")
+    return torch.stack(outs, 1), ms
+
+
+def forward_logits(torch, cfg, params, tokens, keep: int):
+    """``forward``'s bf16 hidden @ unembed at the last ``keep`` positions,
+    fp32 (the reference's forward-against-decode reference)."""
+    from repro_torch.models import COMPUTE_DTYPE, forward, unembed_matrix
+
+    with torch.inference_mode():
+        hidden, _ = forward(params, cfg, {"tokens": tokens})
+        w = unembed_matrix(params).to(COMPUTE_DTYPE)
+        return (hidden[:, -keep:].to(COMPUTE_DTYPE) @ w.T).float()
+
+
+def recorded_routes(torch, fn):
+    """``fn()`` with ``models.moe.moe_route`` recording each call's expert
+    ids (G, S, K), in call order."""
+    from repro_torch.models import moe
+
+    calls = []
+    route = moe.moe_route
+
+    def recording(params, cfg, x):
+        out = route(params, cfg, x)
+        calls.append(out[1])
+        return out
+
+    moe.moe_route = recording
+    try:
+        return fn(), calls
+    finally:
+        moe.moe_route = route
+
+
+def routed_as(torch, fn, routes):
+    """``fn()`` with ``models.moe.moe_route`` sending its i-th call's tokens
+    to the experts ``routes[i]`` (gates renormalised over them from the
+    call's own router logits); returns fn's result and each call's fp32
+    router logits."""
+    from repro_torch.models import moe
+
+    logits = []
+    route, it = moe.moe_route, iter(routes)
+
+    def forced(params, cfg, x):
+        logits32, _, _ = route(params, cfg, x)
+        eidx = next(it)
+        logits.append(logits32)
+        return logits32, eidx, torch.softmax(torch.gather(logits32, -1, eidx), dim=-1)
+
+    moe.moe_route = forced
+    try:
+        return fn(), logits
+    finally:
+        moe.moe_route = route
+
+
+def hold_decode(torch, cfg, params, tokens, tol: float, tag: str) -> dict:
+    """Teacher-forced decode of ``tokens`` held to ``forward`` within
+    ``tol`` (relative to max|ref|, every step), and ``prefill``'s last
+    logits held to the decode path's last step within ``tol``.
+
+    An MoE config runs with capacity C = S, so that the forward drops no
+    token (a decode step routes each token alone and never drops), and its
+    forward and prefill route each token to the experts the decode step
+    chose: where the two paths' bf16 router logits straddle a near-tie at
+    the K-th expert, top-k routing would send the token through other
+    experts and move its logits by far more than rounding (at
+    moonshot-v1-16b-a3b's width, 8 layers, 6 of 512 token-layers; the
+    logits then move by 6% of their max, PERF.md).  Each such
+    choice must be a near-tie of the forward's own router: its K-th logit
+    minus the least logit of the decode step's experts within
+    ``tol``·max|logits|."""
+    from repro_torch.serve import make_prefill_step
+
+    B, T = tokens.shape
+    routes, flips = None, ""
+    if cfg.n_experts:
+        cfg = dataclasses.replace(cfg, capacity_factor=cfg.n_experts / cfg.top_k)
+    (got, ms), calls = recorded_routes(torch, lambda: forced_decode(torch, cfg, params, tokens, T))
+    if cfg.n_experts:
+        L = cfg.n_layers
+        routes = [torch.cat([calls[t * L + layer] for t in range(T)], dim=1) for layer in range(L)]
+
+    def forward_fn():
+        return forward_logits(torch, cfg, params, tokens, T)
+
+    def prefill_fn():
+        with torch.inference_mode():
+            return make_prefill_step(cfg)(params, {"tokens": tokens})
+
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{tag}: non-finite decode logits")
+    if routes is None:
+        want, last = forward_fn(), prefill_fn()
+    else:
+        want, logits = routed_as(torch, forward_fn, routes)
+        last, _ = routed_as(torch, prefill_fn, routes)
+        gaps = []
+        for lg, chosen in zip(logits, routes):
+            kth = lg.sort(dim=-1, descending=True).values[..., cfg.top_k - 1]
+            least = torch.gather(lg, -1, chosen).amin(-1)
+            gaps.append((kth - least) / lg.abs().amax(-1))
+        gaps = torch.stack(gaps)  # (L, B, T)
+        if float(gaps.max()) > tol:
+            raise AssertionError(f"{tag}: a decode routing {float(gaps.max()):.3e} of max|logits| "
+                                 f"from the forward's top-{cfg.top_k}, past {tol}")
+        flips = (f"; {int((gaps > 0).sum())} of {gaps.numel()} token-layers routed off the "
+                 f"forward's own top-{cfg.top_k} (router gaps ≤ {float(gaps.max()):.1e} of "
+                 f"max|logits|); against the forward's own routing "
+                 f"{rel_err(torch, got, forward_fn()):.3e}")
+    err = rel_err(torch, got, want)
+    if err > tol:
+        raise AssertionError(f"{tag}: decode against forward, rel err {err:.3e} > {tol}{flips}")
+    err_last = rel_err(torch, got[:, -1], last)
+    if err_last > tol:
+        raise AssertionError(f"{tag}: prefill's last logits against decode's, rel err "
+                             f"{err_last:.3e} > {tol}")
+    return {"err": err, "err_prefill": err_last, "forced_ms": ms, "flips": flips}
+
+
+def timed_prefill(torch, cfg, params, tokens, reps: int = 3) -> float:
+    """Median seconds of ``make_prefill_step`` on ``tokens`` (host clock,
+    synchronised) after one warm-up; the logits are checked finite."""
+    from repro_torch.serve import make_prefill_step
+
+    step = make_prefill_step(cfg)
+    times = []
+    with torch.inference_mode():
+        for i in range(reps + 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits = step(params, {"tokens": tokens})
+            torch.cuda.synchronize()
+            if i:
+                times.append(time.perf_counter() - t0)
+    if logits.shape != (tokens.shape[0], cfg.padded_vocab) or not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"{cfg.name} prefill: logits {tuple(logits.shape)} or non-finite")
+    return statistics.median(times)
+
+
+def timed_generate(torch, cfg, params, prompts, new: int, runs: int, tag: str) -> dict:
+    """``greedy_generate`` ``runs`` times, equal token for token; ms a
+    decode step (prompt steps included: prompt + new steps a run) and
+    tokens/s through the decode path, from the last run."""
+    from repro_torch.serve import greedy_generate
+
+    B, T = prompts.shape
+    outs = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = greedy_generate(params, cfg, prompts, max_new=new)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        outs.append(out)
+    if out.shape != (B, T + new) or not torch.equal(out[:, :T], prompts):
+        raise AssertionError(f"{tag}: generated {tuple(out.shape)} or the prompt changed")
+    if int(out.min()) < 0 or int(out.max()) >= cfg.padded_vocab:
+        raise AssertionError(f"{tag}: token ids outside [0, {cfg.padded_vocab})")
+    if any(not torch.equal(o, outs[0]) for o in outs[1:]):
+        raise AssertionError(f"{tag}: greedy decoding did not repeat token for token")
+    return {"gen_s": secs, "step_ms": 1e3 * secs / (T + new), "tok_s": B * (T + new) / secs,
+            "sample": out[0, T:T + 8].tolist()}
+
+
+def serve_cell(torch, card, dev, cfg, tag: str, prefill_bt: tuple, forced_bt: tuple,
+               gen: tuple, runs: int, tol: float, mem_bw: float) -> None:
+    """One model through the serving path: ``make_prefill_step`` timed on
+    ``prefill_bt`` seeded tokens, the teacher-forced decode of
+    ``forced_bt`` tokens held to ``forward`` within ``tol``
+    (``hold_decode``), and ``greedy_generate`` of ``gen`` = (batch,
+    prompt, new) ``runs`` times.  The decode step's floor: its fp32 weights (all but
+    the embedding table, of which it gathers B rows) read once at the
+    card's memory rate; every weight is cast to bf16 at its product, which
+    doubles the bytes."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params, n_params = serve_params(torch, cfg, dev)
+    init_s = time.perf_counter() - t0
+    prefill_s = timed_prefill(torch, cfg, params, seeded_tokens(torch, cfg, dev, *prefill_bt, 1))
+    held = hold_decode(torch, cfg, params, seeded_tokens(torch, cfg, dev, *forced_bt, 2),
+                       tol, tag)
+    B, T, new = gen
+    g = timed_generate(torch, cfg, params, seeded_tokens(torch, cfg, dev, B, T, 3), new, runs, tag)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    read = n_params - (0 if cfg.tie_embeddings else cfg.padded_vocab * cfg.d_model)
+    floor_ms = 1e3 * 4 * read / mem_bw
+    log(f"[12] {tag}: {cfg.name} ({cfg.n_layers} of {published_layers(cfg)} layers, "
+        f"{n_params:,} params, {4 * n_params / 1e9:.1f} GB fp32, seeded in {init_s:.1f}s); "
+        f"prefill {prefill_bt[0]}×{prefill_bt[1]} tokens {prefill_s:.4f}s "
+        f"({prefill_bt[0] * prefill_bt[1] / prefill_s:.0f} tokens/s); teacher-forced decode "
+        f"{forced_bt[0]}×{forced_bt[1]}: {held['forced_ms']:.2f} ms a step, against forward "
+        f"rel err {held['err']:.3e}, prefill's last logits {held['err_prefill']:.3e} (tol "
+        f"{tol}){held['flips']}")
+    log(f"[12] {tag}: greedy_generate batch {B}, prompt {T}, {new} new, {runs}× equal: "
+        f"{g['gen_s']:.3f}s a run, {g['step_ms']:.2f} ms a decode step ({T + new} steps), "
+        f"{g['tok_s']:.0f} tokens/s; floor of a step: its fp32 weights (all but the "
+        f"embedding table) read once {floor_ms:.2f} ms, {2 * floor_ms:.2f} ms with the bf16 "
+        f"copies written and read; max_memory_allocated {peak_gb:.2f} GB; sample "
+        f"{g['sample']}; {card}")
+    del params
+    torch.cuda.empty_cache()
+
+
+def ring_wrap(torch, card, dev) -> None:
+    """Phase 12 (c): recurrentgemma-9b at published width, one period
+    (rglru, rglru, local_attn).  Teacher-force RING_T tokens, past the
+    2,048-slot ring, and hold the last RING_KEEP steps to ``forward``;
+    then ``forward`` at BLOCK_T > 2·window, which takes the blockwise
+    windowed path (counted), and one local_attn layer's blockwise output
+    on its own q, k, v held to ``_dense_attention`` with the same window
+    (2⁻⁵·max|dense|, the port's bf16 bound)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import COMPUTE_DTYPE, attention as A, forward
+    from repro_torch.models.blocks import attn_config, layer_params
+
+    cfg = dataclasses.replace(get_config("recurrentgemma-9b"), n_layers=3)
+    if cfg.layer_kinds != ("rglru", "rglru", "local_attn") or RING_T <= cfg.window:
+        raise AssertionError(f"ring cell: kinds {cfg.layer_kinds}, T {RING_T}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    params, n_params = serve_params(torch, cfg, dev)
+    tokens = seeded_tokens(torch, cfg, dev, 1, RING_T, 4)
+    got, ms = forced_decode(torch, cfg, params, tokens, RING_KEEP)
+    err = rel_err(torch, got, forward_logits(torch, cfg, params, tokens, RING_KEEP))
+    if err > RING_TOL:
+        raise AssertionError(f"ring wrap: last {RING_KEEP} steps against forward, rel err "
+                             f"{err:.3e} > {RING_TOL}")
+
+    calls = []
+    blockwise = A._blockwise_attention
+
+    def counted(*args):
+        calls.append(args[0].shape[1])
+        return blockwise(*args)
+
+    A._blockwise_attention = counted
+    try:
+        long = seeded_tokens(torch, cfg, dev, 1, BLOCK_T, 5)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            hidden, _ = forward(params, cfg, {"tokens": long})
+        torch.cuda.synchronize()
+        fwd_s = time.perf_counter() - t0
+    finally:
+        A._blockwise_attention = blockwise
+    if calls != [BLOCK_T] or not bool(torch.isfinite(hidden).all()):
+        raise AssertionError(f"forward at T={BLOCK_T}: blockwise calls {calls}, or non-finite")
+    acfg = attn_config(cfg, "local_attn")
+    p = {k[len("mixer."):]: v for k, v in layer_params(params, 2).items()
+         if k.startswith("mixer.")}
+    with torch.inference_mode():
+        x = 0.5 * torch.randn(1, BLOCK_T, cfg.d_model, device=dev,
+                              generator=torch.Generator(device=dev).manual_seed(6))
+        pos = torch.arange(BLOCK_T, device=dev)[None]
+        q, k, v = A._project_qkv(p, acfg, x.to(COMPUTE_DTYPE), pos)
+        rep = cfg.n_heads // cfg.n_kv_heads
+        k, v = A._repeat_kv(k, rep), A._repeat_kv(v, rep)
+        scale = A._scale(acfg)
+        block = A._blockwise_attention(q, k, v, scale, acfg)
+        dense = A._dense_attention(q, k, v, scale, 0, acfg.window)
+    att_err = float((block.float() - dense.float()).abs().max())
+    att_tol = 2.0**-5 * float(dense.float().abs().max())
+    if att_err > att_tol:
+        raise AssertionError(f"blockwise windowed attention against dense: {att_err} > {att_tol}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    log(f"[12] (c) ring wrap: {cfg.name} ({cfg.n_layers} of {published_layers(cfg)} layers, "
+        f"{n_params:,} params) teacher-forced 1×{RING_T} tokens through a {cfg.window}-slot "
+        f"ring: {ms:.2f} ms a step; last {RING_KEEP} steps against forward rel err {err:.3e} "
+        f"(tol {RING_TOL}); forward at T={BLOCK_T} {fwd_s:.3f}s through the "
+        f"blockwise windowed path ({len(calls)} call, chunks of {acfg.chunk_q}); one "
+        f"local_attn layer blockwise against dense, max |err| {att_err:.3e} (tol "
+        f"{att_tol:.3e}); max_memory_allocated {peak_gb:.2f} GB; {card}")
+    del params, hidden, q, k, v, block, dense
+    torch.cuda.empty_cache()
+
+
+def serve_subprocesses(card) -> None:
+    """Phase 12 (e): the decode launcher and the serving example, each in a
+    subprocess on the card; each must exit 0."""
+    runs = (["repro_torch.launch.serve", "--arch", "qwen3-1.7b", "--smoke", "--device", "cuda",
+             "--batch", "4", "--prompt-len", "16", "--new", "32"],
+            ["repro_torch.examples.serve_batched", "--window", "8", "--device", "cuda"])
+    for argv in runs:
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", *argv], capture_output=True, text=True,
+                              env=dict(os.environ, PYTHONPATH=str(ROOT / "src")), timeout=300)
+        if proc.returncode != 0:
+            raise AssertionError(f"{argv[0]} exited {proc.returncode}: {proc.stdout[-2000:]} "
+                                 f"{proc.stderr[-2000:]}")
+        log(f"[12] (e) python -m {' '.join(argv)}: "
+            f"{' | '.join(proc.stdout.strip().splitlines())} "
+            f"({time.perf_counter() - t0:.1f}s, process start included); {card}")
+
+
+def serving(torch, card, dev, mem_bw: float) -> None:
+    """Phase 12: (a) qwen3-1.7b and (b) recurrentgemma-9b at full published
+    depth and width, (c) the ring wrap and the blockwise windowed path,
+    (d) moonshot-v1-16b-a3b at published width with depth cut (the MoE FFN
+    in decode), (e) the two serving subprocesses."""
+    from repro_torch.configs import get_config
+
+    def cell(tag):
+        name, layers, prefill_bt, forced_bt, gen, runs, tol = SERVE_CELLS[tag]
+        cfg = get_config(name)
+        if layers is not None:
+            cfg = dataclasses.replace(cfg, n_layers=layers)
+        t0 = time.perf_counter()
+        serve_cell(torch, card, dev, cfg, tag, prefill_bt, forced_bt, gen, runs, tol, mem_bw)
+        log(f"[12] {tag}: {time.perf_counter() - t0:.1f}s")
+
+    cell("(a)")
+    cell("(b)")
+    t0 = time.perf_counter()
+    ring_wrap(torch, card, dev)
+    log(f"[12] (c): {time.perf_counter() - t0:.1f}s")
+    cell("(d)")
+    serve_subprocesses(card)
+
+
 def main() -> None:
     import torch
 
@@ -2276,16 +2690,16 @@ def main() -> None:
     from repro_torch.optim import warmup_cosine
 
     lm_cfg = get_config(LM_ARCH)
-    sync = train_lm(torch, ops, card, dev, lm_cfg, LM_DOCS, "sync", LM_STEPS,
-                    warmup_cosine(3e-4, 10, LM_STEPS), (3, 2), "main path")
+    sync = train_lm(torch, ops, card, dev, lm_cfg, MAIN_DOCS, "sync", MAIN_STEPS,
+                    warmup_cosine(3e-4, 10, MAIN_STEPS), (3, 2), "main path")
     results["ce_proxy"]["launches"] = sync["launches"]
     # the trainer's default mode: the first selection overlaps epoch 0
-    asyn = train_lm(torch, ops, card, dev, lm_cfg, LM_DOCS, "async", LM_ASYNC_STEPS,
-                    warmup_cosine(3e-4, 10, LM_STEPS), (2, 1), "async")
+    asyn = train_lm(torch, ops, card, dev, lm_cfg, MAIN_DOCS, "async", MAIN_ASYNC_STEPS,
+                    warmup_cosine(3e-4, 10, MAIN_STEPS), (2, 1), "async")
     # Both modes train on the full data until the first install, from the
     # same seed: bf16 steps through cuBLAS and the embedding's scattered
     # backward need not repeat bit for bit, so a relative 1e-2.
-    n0 = LM_DOCS // LM_BATCH
+    n0 = MAIN_DOCS // LM_BATCH
     drift = max(abs(a - b) / abs(b) for a, b in zip(asyn["losses"][:n0], sync["losses"][:n0]))
     if drift > 1e-2:
         raise AssertionError(f"async and sync epoch-0 losses differ by {drift:.3e} (rel)")
@@ -2326,7 +2740,12 @@ def main() -> None:
     log(f"[11] phase total {time.perf_counter() - t0:.1f}s; launches {spread}")
     del cov_feats
 
-    # -- 12. report ---------------------------------------------------------
+    # -- 12. serving: prefill and KV-cache decode ----------------------------
+    t0 = time.perf_counter()
+    serving(torch, card, dev, mem_bw)
+    log(f"[12] phase total {time.perf_counter() - t0:.1f}s")
+
+    # -- 13. report ---------------------------------------------------------
     replaces = {
         "fl_gains": "src/repro/kernels/fl_gains.py:106",
         "fl_gains_argmax": "src/repro/kernels/fl_gains.py:197",
@@ -2356,8 +2775,8 @@ def main() -> None:
         })
     if any(k["launches"] < 1 for k in kernels):
         raise AssertionError(f"a kernel of the path was never launched: {kernels}")
-    log(f"[12] ce_proxy fp32 at the main-path shape: {results['ce_proxy']['fp32']}")
-    log(f"[12] total {time.perf_counter() - t_start:.1f}s")
+    log(f"[13] ce_proxy fp32 at the main-path shape: {results['ce_proxy']['fp32']}")
+    log(f"[13] total {time.perf_counter() - t_start:.1f}s")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

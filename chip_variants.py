@@ -74,6 +74,14 @@ committed kernel, in one process on one card:
                          LR_PROBE, logging the step losses.  A run whose
                          last loss is not below its first is logged as
                          such; any other failure raises.
+  --serve-probe          chip_smoke.py phase 12's forward-against-decode
+                         error, taken apart: qwen3-1.7b and
+                         recurrentgemma-9b at full depth with cuBLAS's
+                         reduced-precision bf16 reductions on and off, then
+                         the first k layers of the same weights; and
+                         moonshot-v1-16b-a3b at 8 layers with the forward
+                         routed natively, counting the token-layers whose
+                         expert sets differ from the decode step's.
 
 Run from the repository root:
 
@@ -690,6 +698,51 @@ def replay_baseline(torch, cs, path: Path) -> None:
     use_library("fl_replay", None)
 
 
+SERVE_PROBE_DEPTHS = {"qwen3-1.7b": (4, 8, 16), "recurrentgemma-9b": (3, 6, 12, 24)}
+
+
+def serve_probe(torch, cs) -> None:
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    dev = torch.device("cuda")
+    for name, depths in SERVE_PROBE_DEPTHS.items():
+        cfg = get_config(name)
+        params, _ = cs.serve_params(torch, cfg, dev)
+        tokens = cs.seeded_tokens(torch, cfg, dev, 2, 64, 2)
+        for reduced in (True, False):
+            torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = reduced
+            got, _ = cs.forced_decode(torch, cfg, params, tokens, 64)
+            want = cs.forward_logits(torch, cfg, params, tokens, 64)
+            log(f"[serve] {name}, {cfg.n_layers} layers, reduced-precision bf16 reductions "
+                f"{reduced}: decode against forward {cs.rel_err(torch, got, want):.4e}")
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = True
+        for k in depths:
+            sub = {key: v for key, v in params.items()
+                   if not key.startswith("layers.") or int(key.split(".")[1]) < k}
+            c = dataclasses.replace(cfg, n_layers=k)
+            got, _ = cs.forced_decode(torch, c, sub, tokens, 64)
+            want = cs.forward_logits(torch, c, sub, tokens, 64)
+            log(f"[serve] {name}, first {k} layers: {cs.rel_err(torch, got, want):.4e}")
+        del params, sub
+        torch.cuda.empty_cache()
+    cfg = dataclasses.replace(get_config("moonshot-v1-16b-a3b"), n_layers=8)
+    cfg = dataclasses.replace(cfg, capacity_factor=cfg.n_experts / cfg.top_k)
+    params, _ = cs.serve_params(torch, cfg, dev)
+    tokens = cs.seeded_tokens(torch, cfg, dev, 2, 32, 2)
+    (got, _), dec = cs.recorded_routes(torch, lambda: cs.forced_decode(torch, cfg, params,
+                                                                        tokens, 32))
+    want, fwd = cs.recorded_routes(torch, lambda: cs.forward_logits(torch, cfg, params, tokens,
+                                                                     32))
+    apart = sum(int((torch.cat([dec[t * cfg.n_layers + layer] for t in range(32)], 1)
+                     .sort(-1).values != fwd[layer].sort(-1).values).any(-1).sum())
+                for layer in range(cfg.n_layers))
+    log(f"[serve] moonshot-v1-16b-a3b, 8 layers, forward routed natively: decode against "
+        f"forward {cs.rel_err(torch, got, want):.4e}; {apart} of {2 * 32 * cfg.n_layers} "
+        f"token-layers routed to other expert sets")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--ablate", action="store_true")
@@ -701,6 +754,7 @@ def main() -> None:
     ap.add_argument("--replay-baseline", type=Path)
     ap.add_argument("--twin-baseline", type=Path, nargs="+")
     ap.add_argument("--lr-probe", action="store_true")
+    ap.add_argument("--serve-probe", action="store_true")
     args = ap.parse_args()
     import torch
 
@@ -730,6 +784,8 @@ def main() -> None:
         twin_baseline(torch, cs, args.twin_baseline)
     if args.lr_probe:
         lr_probe(torch, cs)
+    if args.serve_probe:
+        serve_probe(torch, cs)
 
 
 if __name__ == "__main__":

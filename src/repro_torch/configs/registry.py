@@ -2,8 +2,9 @@
 
 Port of ``repro.configs.registry`` (``ARCHS``, ``get_config``,
 ``smoke_config``).  Only the configurations the port runs are registered:
-the dense and MoE families with global attention.  The reference's other
-architectures come with their families (ROADMAP.md queue 1, item 6).
+the dense and MoE families and the Griffin hybrid (recurrentgemma-9b).
+The reference's other architectures come with their families (ROADMAP.md
+queue 1, item 6).
 """
 from __future__ import annotations
 
@@ -16,6 +17,7 @@ from repro_torch.configs import (
     nemotron_4_15b,
     qwen2_7b,
     qwen3_1_7b,
+    recurrentgemma_9b,
 )
 from repro_torch.models.config import ModelConfig
 
@@ -24,6 +26,7 @@ __all__ = ["ARCHS", "get_config", "smoke_config"]
 ARCHS: dict[str, ModelConfig] = {
     c.CONFIG.name: c.CONFIG
     for c in (
+        recurrentgemma_9b,
         granite_3_8b,
         qwen2_7b,
         qwen3_1_7b,

@@ -1,9 +1,8 @@
 """Assigned input-shape set (port of ``repro.configs.shapes``).
 
 ``decode_*`` / ``long_*`` lower a serve step (one new token against a KV
-cache of length seq_len), NOT a train step; the port has no decode path
-yet (ROADMAP.md queue 1, item 7).  ``long_500k`` requires sub-quadratic
-attention.
+cache of length seq_len), NOT a train step (``serve.make_serve_step``).
+``long_500k`` requires sub-quadratic attention.
 """
 from __future__ import annotations
 

@@ -3,8 +3,8 @@
 No counterpart in ``repro``: this module takes the reference package's
 outputs as plain numpy arrays and dicts (``EngineConfig.to_dict()``,
 ``CoresetSelection`` fields, the logistic-regression weight vector, an LM
-``init_params`` tree) and turns them into the port's objects.  It never
-imports JAX.
+``init_params`` tree, an LM serve state) and turns them into the port's
+objects.  It never imports JAX.
 """
 from __future__ import annotations
 
@@ -23,6 +23,7 @@ __all__ = [
     "params_from_reference",
     "PROXY_IMPL_FROM_REFERENCE",
     "model_params_from_reference",
+    "serve_state_from_reference",
 ]
 
 # The reference's select-step proxy heads (``make_select_step(proxy_impl)``).
@@ -109,6 +110,21 @@ def _flat_names(tree: dict, prefix: str = "") -> dict:
     return out
 
 
+def _unstack_layers(stack: dict, period: int) -> list:
+    """A reference ``{'scanned': per-kind trees stacked over the periods |
+    None, 'remainder': [tree]}`` → one flat {name: array} per layer, in
+    layer order."""
+    layers: list[dict] = []
+    scanned = stack["scanned"]
+    if scanned is not None:
+        n_full = np.shape(next(iter(_flat_names(scanned[0]).values())))[0]
+        for j in range(n_full):
+            for i in range(period):
+                layers.append({k: np.asarray(v)[j] for k, v in _flat_names(scanned[i]).items()})
+    layers.extend(_flat_names(p) for p in stack["remainder"])
+    return layers
+
+
 def model_params_from_reference(tree: dict, cfg, device: str | torch.device = "cuda") -> dict:
     """A reference ``models.init_params`` tree (leaves as numpy arrays) →
     the port's flat fp32 parameter dict on ``device``.
@@ -116,7 +132,8 @@ def model_params_from_reference(tree: dict, cfg, device: str | torch.device = "c
     The stacked ``stack.scanned`` periods (leading axis = period index)
     and the ``stack.remainder`` list become ``layers.<i>.*`` in layer
     order; nested dicts become dotted names; attention weights keep their
-    (d, H, hd) / (H, hd, d) layouts, MoE experts their (E, …) ones; the
+    (d, H, hd) / (H, hd, d) layouts, MoE experts their (E, …) ones,
+    Griffin blocks their ``w_x`` … ``b_i`` as they are; the
     (d, padded_vocab) ``unembed`` is transposed to the port's vocab-major
     (padded_vocab, d).  Raises ``ValueError`` when a parameter of
     ``models.param_shapes(cfg)`` is missing, when the tree holds one that
@@ -125,15 +142,7 @@ def model_params_from_reference(tree: dict, cfg, device: str | torch.device = "c
     from repro_torch.models import param_shapes
 
     dev = resolve_device(device)
-    period = len(cfg.block_pattern)
-    layers: list[dict] = []
-    scanned = tree["stack"]["scanned"]
-    if scanned is not None:
-        n_full = np.asarray(_flat_names(scanned[0])["norm1.scale"]).shape[0]
-        for j in range(n_full):
-            for i in range(period):
-                layers.append({k: np.asarray(v)[j] for k, v in _flat_names(scanned[i]).items()})
-    layers.extend(_flat_names(p) for p in tree["stack"]["remainder"])
+    layers = _unstack_layers(tree["stack"], len(cfg.block_pattern))
     if len(layers) != cfg.n_layers:
         raise ValueError(f"tree holds {len(layers)} layers, config has {cfg.n_layers}")
     out = {}
@@ -154,3 +163,29 @@ def model_params_from_reference(tree: dict, cfg, device: str | torch.device = "c
     return {
         k: torch.from_numpy(np.array(v, np.float32)).to(dev) for k, v in out.items()
     }
+
+
+def serve_state_from_reference(state: dict, cfg, device: str | torch.device = "cuda") -> dict:
+    """A reference ``init_serve_state``/``decode_step`` state (leaves as
+    numpy arrays) → the port's ``{'layers': [per-layer state], 'pos': int}``
+    on ``device``.
+
+    The stacked periods are unstacked and the remainder appended, in layer
+    order; KV caches {k, v} stay bf16 (exact through fp32), Griffin states
+    keep {h, conv} and their dtypes.  Raises ``ValueError`` when the layer
+    count or a layer's keys do not fit ``cfg``."""
+    dev = resolve_device(device)
+    layers = _unstack_layers(state["layers"], len(cfg.block_pattern))
+    if len(layers) != cfg.n_layers:
+        raise ValueError(f"state holds {len(layers)} layers, config has {cfg.n_layers}")
+    out = []
+    for i, (kind, layer) in enumerate(zip(cfg.layer_kinds, layers)):
+        want = {"h", "conv"} if kind == "rglru" else {"k", "v"}
+        if set(layer) != want:
+            raise ValueError(f"layer {i} ({kind}): state keys {sorted(layer)}, want {sorted(want)}")
+        out.append({
+            k: torch.from_numpy(np.array(v, np.float32)).to(
+                dev, torch.bfloat16 if "bfloat16" in str(np.asarray(v).dtype) else torch.float32)
+            for k, v in layer.items()
+        })
+    return {"layers": out, "pos": int(np.asarray(state["pos"]))}

@@ -1,7 +1,15 @@
-"""The coreset service behind a JSON-lines protocol.
+"""Serving launcher: batched greedy decoding of a registered architecture,
+or the coreset service behind a JSON-lines protocol.
 
-Port of ``repro.launch.serve`` (its ``--coreset`` mode).  One JSON request
-per stdin line, one JSON response per stdout line:
+Port of ``repro.launch.serve``.  Decode mode (seeded weights, prompts
+drawn from a seeded generator):
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b --smoke \
+        --batch 4 --prompt-len 16 --new 32
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b --smoke --device cpu
+
+Coreset-as-a-service mode: one JSON request per stdin line, one JSON
+response per stdout line:
 
     PYTHONPATH=src python -m repro_torch.launch.serve --coreset --budget 32 --dim 8
     PYTHONPATH=src python -m repro_torch.launch.serve --coreset --device cpu
@@ -14,22 +22,30 @@ per stdin line, one JSON response per stdout line:
     {"op": "quit"}   -> {"ok": true, "bye": true}
     anything invalid -> {"ok": false, "error": "..."}   (service keeps running)
 
-The service runs on ``--device`` (default ``cuda``).  A fault plan in
-``$REPRO_FAULT_PLAN`` (``repro_torch.faults``, JSON) is installed at
-start-up.  Decode mode
-(``--arch``) is not ported yet and raises.
+Both modes run on ``--device`` (default ``cuda``).  In service mode a
+fault plan in ``$REPRO_FAULT_PLAN`` (``repro_torch.faults``, JSON) is
+installed at start-up.  ``--arch`` takes the port's registered
+architectures; the reference's other families, each with its decode
+path, are still to port (ROADMAP.md queue 1, item 6).
 """
 from __future__ import annotations
 
 import argparse
 import json
 import sys
+import time
 
+import torch
+
+from repro_torch._device import resolve_device
+from repro_torch.configs import ARCHS, get_config, smoke_config
 from repro_torch.core.engines import StreamingConfig
 from repro_torch.faults import FailurePolicy, install_from_env
-from repro_torch.serve import CoresetService
+from repro_torch.models import init_params
+from repro_torch.serve import CoresetService, greedy_generate
 
-_DECODE_ITEM = "ROADMAP.md queue 1, 'Prefill and decode'"
+# Where the decode paths of the families not registered yet are to port.
+_DECODE_ITEM = "ROADMAP.md queue 1, item 6"
 
 
 def _serve_coreset(args, stdin=None, stdout=None) -> None:
@@ -97,11 +113,36 @@ def _serve_coreset(args, stdin=None, stdout=None) -> None:
             reply({"ok": False, "error": f"{type(e).__name__}: {e}"})
 
 
-def main(argv=None) -> None:
+def _serve_decode(args) -> torch.Tensor:
+    """Greedy decoding of ``--batch`` seeded prompts; returns the tokens."""
+    device = resolve_device(args.device)
+    cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    params = init_params(cfg, torch.Generator(device=device).manual_seed(0))
+    prompts = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
+                            generator=torch.Generator().manual_seed(1)).to(device)
+    t0 = time.perf_counter()
+    out = greedy_generate(params, cfg, prompts, max_new=args.new)
+    sample = out[0, args.prompt_len:args.prompt_len + 12].tolist()  # waits for the device
+    dt = time.perf_counter() - t0
+    n_tok = args.batch * (args.prompt_len + args.new)
+    print(f"{cfg.name}: {tuple(out.shape)} in {dt:.2f}s ({n_tok / dt:.0f} tok/s) "
+          f"on {device}")
+    print("sample:", sample)
+    return out
+
+
+def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--arch", help="decode mode (not ported yet: raises)")
+    ap.add_argument("--arch", choices=sorted(ARCHS),
+                    help=f"decode mode: a registered architecture ({_DECODE_ITEM} "
+                         "ports the others)")
+    ap.add_argument("--smoke", action="store_true",
+                    help="reduced same-family config (CPU-runnable)")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=16)
+    ap.add_argument("--new", type=int, default=32)
     ap.add_argument("--coreset", action="store_true",
-                    help="run the JSON-lines coreset service")
+                    help="run the JSON-lines coreset service instead of decode")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--budget", type=int, default=32)
     ap.add_argument("--dim", type=int, default=8)
@@ -120,12 +161,12 @@ def main(argv=None) -> None:
                     help="'raise' fails the request; 'keep_stale' keeps serving the "
                          "installed selection and replies with a craig_refresh_failed event")
     args = ap.parse_args(argv)
-    if not args.coreset:
-        raise NotImplementedError(
-            f"decode mode is not ported to repro_torch ({_DECODE_ITEM}); "
-            "run with --coreset"
-        )
-    _serve_coreset(args)
+    if args.coreset:
+        _serve_coreset(args)
+        return None
+    if args.arch is None:
+        ap.error("--arch is required unless --coreset is given")
+    return _serve_decode(args)
 
 
 if __name__ == "__main__":

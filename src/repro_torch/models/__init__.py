@@ -1,11 +1,15 @@
-"""Decoder-only LM (port of ``repro.models``; dense and MoE 'attn' layers)."""
+"""Decoder-only LM (port of ``repro.models``; dense, MoE and Griffin hybrid
+stacks; training, proxies, prefill and decode)."""
 from repro_torch.models.config import ModelConfig, require_ported
 from repro_torch.models.model import (
     COMPUTE_DTYPE,
+    decode_step,
     forward,
     init_params,
+    init_serve_state,
     loss_fn,
     param_shapes,
+    prefill,
     proxy_features,
     proxy_features_fused,
     unembed_matrix,
@@ -22,4 +26,7 @@ __all__ = [
     "proxy_features",
     "proxy_features_fused",
     "unembed_matrix",
+    "init_serve_state",
+    "prefill",
+    "decode_step",
 ]

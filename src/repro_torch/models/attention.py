@@ -1,13 +1,24 @@
-"""Causal self-attention: GQA/MQA/MHA with RoPE, qk-norm and QKV bias.
+"""Causal self-attention: GQA/MQA/MHA with RoPE, qk-norm, QKV bias, sliding
+window, and KV-cache decoding.
 
-Port of the training path of ``repro.models.attention``: the projections
-into (d, H, hd) (``_project_qkv``, with qk-norm after the projection and
-before RoPE), the GQA head-group repeat (``_repeat_kv``), the dense path
+Port of ``repro.models.attention``: the projections into (d, H, hd)
+(``_project_qkv``, with qk-norm after the projection and before RoPE),
+the GQA head-group repeat (``_repeat_kv``), the dense path
 (``_dense_attention``) and the flash-style blockwise path
-(``_blockwise_attention``, online softmax over KV chunks, taken above
-``blockwise_threshold``).  These are plain tensor code in the reference
-too (no Pallas kernel), so they are plain torch here.  Sliding windows,
-M-RoPE, prefill and decode are not ported (ROADMAP.md queue 1).
+(``_blockwise_attention``, online softmax over KV chunks; chunks wholly in
+a query chunk's future, or wholly older than its window, are skipped),
+taken above ``blockwise_threshold`` or, with a window, above twice the
+window.  ``window`` makes a layer sliding-window attention (Griffin's
+``local_attn``): query i sees keys (i − window, i].
+
+Decoding keeps a bf16 KV cache (B, S, KV, hd) per layer
+(``init_kv_cache``): S = max_len, or a ring of S = min(window, max_len)
+slots for a windowed layer, position p in slot p mod S.
+``decode_attention`` writes the new token's k/v into its slot in place
+(the reference's donated buffers) and attends grouped queries
+(B, KV, G, hd) to the cache without repeating it.  These are plain
+tensor code in the reference too (no Pallas kernel), so they are plain
+torch here.  M-RoPE is not ported (ROADMAP.md queue 1, item 6).
 
 Parameters of one layer's mixer: ``wq`` (d, H, hd), ``wk``/``wv``
 (d, KV, hd), ``wo`` (H, hd, d), optional ``bq``/``bk``/``bv`` and
@@ -22,7 +33,8 @@ import torch
 
 from repro_torch.models.layers import apply_rope, dense_init, rms_norm
 
-__all__ = ["AttentionConfig", "init_attention", "attention"]
+__all__ = ["AttentionConfig", "init_attention", "attention", "init_kv_cache",
+           "decode_attention"]
 
 _NEG_INF = -1e30
 
@@ -36,6 +48,7 @@ class AttentionConfig:
     qkv_bias: bool = False
     qk_norm: bool = False
     rope_theta: float = 10000.0
+    window: int | None = None  # sliding-window size (None = global)
     blockwise_threshold: int = 8192  # blockwise above this sequence length
     chunk_q: int = 1024
     chunk_kv: int = 1024
@@ -89,20 +102,29 @@ def _repeat_kv(k: torch.Tensor, n_rep: int) -> torch.Tensor:
     return k[:, :, :, None, :].expand(b, t, kv, n_rep, hd).reshape(b, t, kv * n_rep, hd)
 
 
-def _dense_attention(q, k, v, scale: float, causal_offset: int = 0):
-    """q (B,Tq,H,hd), k/v (B,Tk,H,hd); query i attends keys ≤ i + offset."""
+def _scale(cfg: AttentionConfig) -> float:
+    return float(1.0 / torch.sqrt(torch.tensor(cfg.d_head, dtype=torch.float32)))
+
+
+def _dense_attention(q, k, v, scale: float, causal_offset: int = 0,
+                     window: int | None = None):
+    """q (B,Tq,H,hd), k/v (B,Tk,H,hd); query i attends keys ≤ i + offset
+    (and, with a window, > i + offset − window)."""
     Tq, Tk = q.shape[1], k.shape[1]
     scores = torch.einsum("bqhk,bshk->bhqs", q, k).float() * scale
     qi = torch.arange(Tq, device=q.device)[:, None] + causal_offset
     ki = torch.arange(Tk, device=q.device)[None, :]
-    scores = torch.where(ki <= qi, scores, _NEG_INF)
+    mask = ki <= qi
+    if window is not None:
+        mask &= ki > qi - window
+    scores = torch.where(mask, scores, _NEG_INF)
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
     return torch.einsum("bhqs,bshk->bqhk", probs, v)
 
 
 def _blockwise_attention(q, k, v, scale: float, cfg: AttentionConfig):
     """Online softmax over KV chunks (exact; chunks that lie wholly in a
-    query chunk's future are skipped)."""
+    query chunk's future, or wholly older than its window, are skipped)."""
     B, Tq, H, hd = q.shape
     Tk = k.shape[1]
     cq = math.gcd(min(cfg.chunk_q, Tq), Tq)
@@ -117,11 +139,15 @@ def _blockwise_attention(q, k, v, scale: float, cfg: AttentionConfig):
         for kj in range(Tk // ckv):
             if kj * ckv > (qi + 1) * cq - 1:
                 break  # this and every later chunk is in the future
+            if cfg.window is not None and (kj + 1) * ckv <= qi * cq - cfg.window:
+                continue  # wholly older than the window of every query here
             ks = k[:, kj * ckv:(kj + 1) * ckv]
             vs = v[:, kj * ckv:(kj + 1) * ckv]
             s = torch.einsum("bqhk,bshk->bhqs", qc, ks).float() * scale
             kpos = kj * ckv + torch.arange(ckv, device=q.device)[None, :]
             mask = kpos <= qpos
+            if cfg.window is not None:
+                mask &= kpos > qpos - cfg.window
             s = torch.where(mask, s, _NEG_INF)
             m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
             p = torch.exp(s - m_new) * mask  # all-masked rows: exp(0) → 0
@@ -141,10 +167,60 @@ def attention(p: dict, cfg: AttentionConfig, x: torch.Tensor, positions: torch.T
     q, k, v = _project_qkv(p, cfg, x, positions)
     n_rep = cfg.n_heads // cfg.n_kv_heads
     k, v = _repeat_kv(k, n_rep), _repeat_kv(v, n_rep)
-    scale = float(1.0 / torch.sqrt(torch.tensor(cfg.d_head, dtype=torch.float32)))
-    if T > cfg.blockwise_threshold:
+    scale = _scale(cfg)
+    if T > cfg.blockwise_threshold or (cfg.window is not None and T > 2 * cfg.window):
         out = _blockwise_attention(q, k, v, scale, cfg)
     else:
-        out = _dense_attention(q, k, v, scale)
+        out = _dense_attention(q, k, v, scale, 0, cfg.window)
     H, hd, d = p["wo"].shape
     return out.reshape(B, T, H * hd) @ p["wo"].to(x.dtype).reshape(H * hd, d)
+
+
+# ---------------------------------------------------------------------------
+# decoding with a KV cache
+# ---------------------------------------------------------------------------
+
+
+def init_kv_cache(cfg: AttentionConfig, batch: int, max_len: int, device,
+                  dtype: torch.dtype = torch.bfloat16) -> dict:
+    """Zeroed KV cache {k, v} (batch, S, KV, hd); S = max_len, or a ring
+    of min(window, max_len) slots for a windowed layer."""
+    size = max_len if cfg.window is None else min(cfg.window, max_len)
+    shape = (batch, size, cfg.n_kv_heads, cfg.d_head)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def decode_attention(p: dict, cfg: AttentionConfig, x: torch.Tensor, cache: dict, pos: int):
+    """One-token decode.  x (B, 1, D) at absolute position ``pos`` (a host
+    integer, the same for every row) → (out (B, 1, D), cache).
+
+    The new k/v go into slot ``pos mod S`` of the cache in place; the
+    returned cache holds the same tensors."""
+    B = x.shape[0]
+    positions = torch.full((B, 1), pos, dtype=torch.long, device=x.device)
+    q, k_new, v_new = _project_qkv(p, cfg, x, positions)
+    size = cache["k"].shape[1]
+    slot = pos % size
+    cache["k"][:, slot] = k_new[:, 0].to(cache["k"].dtype)
+    cache["v"][:, slot] = v_new[:, 0].to(cache["v"].dtype)
+
+    # grouped-query attention without repeating the cache
+    KV, hd = cfg.n_kv_heads, cfg.d_head
+    G = cfg.n_heads // KV
+    q5 = q[:, 0].reshape(B, KV, G, hd)
+    k, v = cache["k"].to(q.dtype), cache["v"].to(q.dtype)
+    scores = torch.einsum("bkgh,bskh->bkgs", q5, k).float() * _scale(cfg)
+    s_idx = torch.arange(size, device=x.device)
+    if cfg.window is None:
+        valid = s_idx <= pos  # S = max_len: no wrap
+    else:
+        # ring: slot s holds position cur − ((cur − s) mod S) ∈ (cur − S, cur];
+        # valid once written (remainder, not fmod: the wrap needs a
+        # non-negative residue)
+        valid = pos - torch.remainder(pos - s_idx, size) >= 0
+    scores = torch.where(valid, scores, _NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    out = torch.einsum("bkgs,bskh->bkgh", probs, v).reshape(B, 1, KV * G * hd)
+    H, hd_, d = p["wo"].shape
+    return out @ p["wo"].to(x.dtype).reshape(H * hd_, d), cache

@@ -2,9 +2,10 @@
 
 The port's own copy of the reference's ``ModelConfig``, field for field,
 with ``padded_vocab``, ``layer_kinds`` and ``param_count``.  The port runs
-the dense and MoE families with global attention layers so far;
-:func:`require_ported` raises ``NotImplementedError`` for anything else,
-naming the ROADMAP item that ports it.
+the dense, MoE and hybrid (Griffin: 'rglru' and sliding-window
+'local_attn' layers) families; :func:`require_ported` raises
+``NotImplementedError`` for anything else, naming the ROADMAP item that
+ports it.
 """
 from __future__ import annotations
 
@@ -13,9 +14,11 @@ from typing import Literal
 
 __all__ = ["ModelConfig", "require_ported"]
 
-# The ROADMAP item that ports the families and layer kinds the port lacks.
-_FAMILY_ITEM = "ROADMAP.md queue 1, item 6 'the other families'"
-_PORTED_FAMILIES = ("dense", "moe")
+# The ROADMAP item that ports the families, layer kinds and options the
+# port lacks, one sub-item each.
+_FAMILY_ITEM = "ROADMAP.md queue 1, item 6"
+_PORTED_FAMILIES = ("dense", "moe", "hybrid")
+_PORTED_KINDS = ("attn", "local_attn", "rglru")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -146,21 +149,27 @@ class ModelConfig:
 
 def require_ported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` unless the port can run ``cfg``: the
-    dense or MoE family, 'attn' layers, token frontend, one output head,
-    no M-RoPE."""
+    dense, MoE or hybrid family, 'attn', 'local_attn' and 'rglru' layers,
+    remat 'nothing' or 'full', token frontend, one output head, no
+    M-RoPE."""
+    if cfg.remat_policy not in ("nothing", "full"):
+        raise NotImplementedError(
+            f"{cfg.name}: remat_policy {cfg.remat_policy!r} is not ported to "
+            f"repro_torch ({_FAMILY_ITEM}.1); use 'nothing' or 'full'"
+        )
     if cfg.family not in _PORTED_FAMILIES:
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} is not ported to repro_torch "
             f"({_FAMILY_ITEM}); only {_PORTED_FAMILIES} run"
         )
-    bad = sorted(set(cfg.layer_kinds) - {"attn"})
+    bad = sorted(set(cfg.layer_kinds) - set(_PORTED_KINDS))
     if bad:
         raise NotImplementedError(
             f"{cfg.name}: layer kinds {bad} are not ported to repro_torch "
-            f"({_FAMILY_ITEM}); only 'attn' runs"
+            f"({_FAMILY_ITEM}.2, mLSTM and sLSTM); only {_PORTED_KINDS} run"
         )
     if cfg.frontend != "tokens" or cfg.n_codebooks != 1 or cfg.mrope_sections:
         raise NotImplementedError(
             f"{cfg.name}: the embeddings frontend, codebook heads and M-RoPE "
-            f"are not ported to repro_torch ({_FAMILY_ITEM})"
+            f"are not ported to repro_torch ({_FAMILY_ITEM}.3 and 6.4)"
         )

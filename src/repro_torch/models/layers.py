@@ -9,6 +9,7 @@ fp32 and casts back.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -82,8 +83,21 @@ def _relu2(x: torch.Tensor) -> torch.Tensor:
     return torch.square(F.relu(x))
 
 
+@functools.lru_cache(maxsize=None)
+def _rounded(value: float, dtype: torch.dtype) -> float:
+    """``value`` rounded to ``dtype``, as a Python float."""
+    return torch.tensor(value, dtype=dtype).item()
+
+
 def _gelu(x: torch.Tensor) -> torch.Tensor:
-    return F.gelu(x, approximate="tanh")  # jax.nn.gelu's default
+    """``jax.nn.gelu``'s default, the tanh form, op by op in ``x.dtype``
+    with its constants rounded to ``x.dtype``, as the reference rounds
+    (``F.gelu`` evaluates in fp32 and rounds once: in bf16 it differs from
+    the reference in ~40% of the values by an ulp).  The constants stay
+    Python floats: a tensor made on the card would be a host copy a call."""
+    c = _rounded(math.sqrt(2.0 / math.pi), x.dtype)
+    k = _rounded(0.044715, x.dtype)
+    return x * (0.5 * (1.0 + torch.tanh(c * (x + k * x**3))))
 
 
 _ACTIVATIONS = {"gelu": _gelu, "silu": F.silu, "relu2": _relu2, "relu": F.relu}

@@ -1,6 +1,7 @@
-"""Decoder-only LM: parameters, forward, γ-weighted chunked CE, CRAIG proxies.
+"""Decoder-only LM: parameters, forward, γ-weighted chunked CE, CRAIG
+proxies, prefill and one-token decode.
 
-Port of the training path of ``repro.models.model``:
+Port of ``repro.models.model``:
 
 * ``init_params(cfg, generator)`` — fp32 master weights, on the
   generator's device;
@@ -12,7 +13,18 @@ Port of the training path of ``repro.models.model``:
   Σ_b per_example_b·w_b / max(Σw, 1e-6), per-example weights = the
   paper's per-element stepsizes (Eq. 20);
 * ``proxy_features`` (chunked einsum path) and ``proxy_features_fused``
-  (the ``ce_proxy`` kernel) — pooled unembed-input gradient proxies (B, D).
+  (the ``ce_proxy`` kernel) — pooled unembed-input gradient proxies (B, D);
+* ``init_serve_state(cfg, batch, max_len, device)`` — per-layer decode
+  states (bf16 KV caches, Griffin states) and the position ``pos``, a
+  host integer, so the ring slot of a windowed cache needs no device
+  read;
+* ``prefill(params, cfg, batch)`` — hidden states and the last token's
+  fp32 logits (B, padded_vocab) from a bf16 product.  It does not fill
+  the caches, nor does the reference's: generation teacher-forces the
+  prompt through ``decode_step``;
+* ``decode_step(params, cfg, state, batch)`` — one token (B, 1) → fp32
+  logits (B, padded_vocab) and the state at ``pos + 1``.  KV caches are
+  written in place; the returned state holds the same tensors.
 
 Parameters are one flat dict of fp32 tensors: ``embed`` (padded_vocab, d),
 ``layers.<i>.*`` (see ``blocks.py``), ``final_norm.scale`` (d,) and
@@ -31,7 +43,9 @@ from __future__ import annotations
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.models.blocks import init_stack, norm_fn, stack_forward
+from repro_torch._device import resolve_device
+from repro_torch.models.blocks import (init_decode_state, init_stack, norm_fn, stack_decode,
+                                       stack_forward)
 from repro_torch.models.config import ModelConfig, require_ported
 from repro_torch.models.layers import dense_init
 
@@ -44,6 +58,9 @@ __all__ = [
     "loss_fn",
     "proxy_features",
     "proxy_features_fused",
+    "init_serve_state",
+    "prefill",
+    "decode_step",
 ]
 
 COMPUTE_DTYPE = torch.bfloat16
@@ -181,3 +198,36 @@ def proxy_features_fused(
         compute_dtype=compute_dtype, impl=impl,
     )
     return torch.mean(g.reshape(B, T, D), dim=1)
+
+
+# ---------------------------------------------------------------------------
+# serving: prefill + decode
+# ---------------------------------------------------------------------------
+
+
+def init_serve_state(cfg: ModelConfig, batch: int, max_len: int,
+                     device: str | torch.device = "cuda") -> dict:
+    """Decode states for every layer and the position counter (0)."""
+    dev = resolve_device(device)
+    return {"layers": init_decode_state(cfg, batch, max_len, dev), "pos": 0}
+
+
+def _logits(params: dict, last: torch.Tensor) -> torch.Tensor:
+    """(B, D) → fp32 logits (B, padded_vocab) from a COMPUTE_DTYPE product."""
+    return (last.to(COMPUTE_DTYPE) @ unembed_matrix(params).to(COMPUTE_DTYPE).T).float()
+
+
+def prefill(params: dict, cfg: ModelConfig, batch: dict):
+    """Forward over the prompt → (hidden (B, T, D), last-token logits (B, V))."""
+    hidden, _ = forward(params, cfg, batch)
+    return hidden, _logits(params, hidden[:, -1])
+
+
+def decode_step(params: dict, cfg: ModelConfig, state: dict, batch: dict):
+    """One token ``batch['tokens']`` (B, 1) at ``state['pos']`` →
+    (logits (B, padded_vocab) fp32, state at pos + 1)."""
+    x = params["embed"][batch["tokens"].long()].to(COMPUTE_DTYPE)
+    pos = state["pos"]
+    x, layers = stack_decode(params, cfg, state["layers"], x, pos)
+    x = norm_fn(cfg)(params["final_norm.scale"], x, cfg.norm_eps)
+    return _logits(params, x[:, 0]), {"layers": layers, "pos": pos + 1}

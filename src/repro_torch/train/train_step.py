@@ -9,7 +9,7 @@ Port of ``repro.train.train_step``:
   features (B, D) for a pool batch.
 
 Gradient compression on a data-parallel axis (``grad_transform``) comes
-with the distributed slice (ROADMAP.md queue 1, slice 4).
+with model parallelism and multi-GPU meshes (ROADMAP.md queue 1, item 5).
 """
 from __future__ import annotations
 

@@ -161,9 +161,10 @@ def test_reference_service_state_resumes_in_the_port(evict, per_class):
     _assert_same_update(svc.coreset(), jsvc.coreset())
 
 
-def test_decode_mode_is_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        launch_serve.main(["--arch", "qwen3-1.7b"])
+def test_decode_mode_runs():
+    out = launch_serve.main(["--arch", "qwen3-1.7b", "--smoke", "--device", "cpu",
+                             "--batch", "1", "--prompt-len", "3", "--new", "2"])
+    assert tuple(out.shape) == (1, 5)
 
 
 def test_coreset_service_subprocess_round_trip():

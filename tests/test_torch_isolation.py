@@ -52,7 +52,9 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
         "repro_torch.faults.plan, repro_torch.core.distributed, repro_torch.distributed, "
         "repro_torch.distributed.compression, repro_torch.distributed.tree_select, "
         "repro_torch.distributed.process_tree, repro_torch.launch.tree, "
-        "repro_torch.launch.mesh\n"
+        "repro_torch.launch.mesh, repro_torch.models.recurrent, repro_torch.models.attention, "
+        "repro_torch.serve.serve_step, repro_torch.examples.serve_batched, "
+        "repro_torch.configs.recurrentgemma_9b\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
         "assert not bad, bad\n"
     )

@@ -1,5 +1,5 @@
 """``repro_torch.launch.train`` on the CPU: the reference launcher's options
-at a smoke config, one dense and one MoE architecture — a few steps with a
+at a smoke config, one dense, one MoE and the hybrid architecture — a few steps with a
 finite loss and one CRAIG selection (the pool is one epoch of 4 steps, so
 only the epoch-0 refresh runs)."""
 import math
@@ -10,7 +10,7 @@ import torch
 from repro_torch.launch import train
 
 
-@pytest.mark.parametrize("arch", ["qwen2-7b", "moonshot-v1-16b-a3b"])
+@pytest.mark.parametrize("arch", ["qwen2-7b", "moonshot-v1-16b-a3b", "recurrentgemma-9b"])
 def test_smoke_training_runs_on_the_cpu(arch, capsys):
     out = train.main(["--arch", arch, "--smoke", "--device", "cpu", "--steps", "4",
                       "--batch", "4", "--seq", "16", "--docs", "16"])
@@ -26,7 +26,7 @@ def test_options_are_the_reference_launchers():
         "lr": 3e-4, "microbatches": 1, "craig_fraction": 0.5, "no_craig": False,
         "select_every": 1, "ckpt": None, "device": "cuda"}
     with pytest.raises(SystemExit):
-        train.parse_args(["--arch", "recurrentgemma-9b"])  # not ported: not a choice
+        train.parse_args(["--arch", "xlstm-1.3b"])  # not ported: not a choice
 
 
 def test_the_launcher_raises_for_cuda_without_a_card():

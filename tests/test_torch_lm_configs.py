@@ -1,4 +1,4 @@
-"""The port's six registered LM configurations against the JAX reference
+"""The port's seven registered LM configurations against the JAX reference
 on the CPU: the published configs, their smoke variants, and the smoke
 models' forward, loss, MoE auxiliary loss, gradients and proxies.
 
@@ -31,7 +31,7 @@ from repro_torch.models import model as tmodel
 from repro_torch.models.config import require_ported
 
 ARCH_NAMES = ["qwen3-1.7b", "qwen2-7b", "granite-3-8b", "nemotron-4-15b",
-              "moonshot-v1-16b-a3b", "dbrx-132b"]
+              "moonshot-v1-16b-a3b", "dbrx-132b", "recurrentgemma-9b"]
 B, T = 3, 16
 
 

@@ -98,7 +98,7 @@ def test_qwen3_config_is_the_reference():
 
 
 @pytest.mark.parametrize("bad", [dict(frontend="embeddings"),
-                                 dict(block_pattern=("rglru", "attn")),
+                                 dict(block_pattern=("mlstm", "attn")),
                                  dict(n_codebooks=2)])
 def test_unported_families_raise(bad):
     cfg = ModelConfig(**{**SMALL, **bad})
