@@ -14,8 +14,8 @@ version:
      pool sizes, then timed with CUDA events at the main-path shape beside
      their plain versions and bounds; ``ce_proxy`` (bf16 and fp32) against
      its plain version at T = 4,096, D = 2048, V = 151,936, at the (D,
-     padded V) of the six configs of phase 9 (D 2,048 to 6,144) and at
-     ragged shapes up to D = 8,200, then timed the same way, the six
+     padded V) of the nine configs of phase 9 (D 1,536 to 6,144) and at
+     ragged shapes up to D = 8,200, then timed the same way, the nine
      configs' shapes and the SIMT route's beside the einsum head
      (``core.proxy.lm_unembed_input_proxy``) with each bf16 route's cluster
      size and clusters in flight;
@@ -62,8 +62,15 @@ version:
      then ``Trainer.run`` through two refreshes and one install (dbrx-132b:
      one refresh through ``ProxyExtractor`` and ``CraigSelector``, forward
      only), every refresh launching ``ce_proxy`` at the config's (D,
-     padded V); then a ``launch/train.py --smoke --device cuda``
-     subprocess;
+     padded V); (slice 11) xlstm-1.3b (one mLSTM/sLSTM period) through
+     ``Trainer.run`` the same way, and the stub-frontend configs
+     qwen2-vl-7b (M-RoPE over image-grid positions) and musicgen-medium
+     (four codebook heads: four ``ce_proxy`` launches a batch) through
+     ``make_train_step``, ``make_select_step`` and ``CraigSelector`` on
+     seeded batches in the reference's ``train_batch_struct`` layout; one
+     qwen3-1.7b training step under each remat policy ('nothing', 'dots',
+     'full'), losses equal and gradients held to 'nothing''s; then a
+     ``launch/train.py --smoke --device cuda`` subprocess;
  10. slice 8's paths: the ``stochastic`` engine on phase 3's pool through
      ``CraigSelector`` (F within 1 − 1/e − δ of phase 3's selection per
      class; class 1 again on the CPU, the same candidates, held under the
@@ -94,8 +101,15 @@ version:
      path, one layer's blockwise attention held to the dense one; (d)
      moonshot-v1-16b-a3b at published width, 8 of 48 layers (the MoE FFN
      in decode); (e) ``launch/serve.py --arch qwen3-1.7b --smoke`` and
-     ``examples/serve_batched.py --window 8`` subprocesses on the card.
-     No kernel runs on this path (the reference's is plain JAX too);
+     ``examples/serve_batched.py --window 8`` subprocesses on the card;
+     slice 11 at full published depth and width: (f) xlstm-1.3b (prefill,
+     teacher-forced decode held to ``forward``, in bf16 and with fp32
+     products, greedy generation twice),
+     (g) qwen2-vl-7b over seeded embeddings (prefill over an image grid's
+     M-RoPE positions; M-RoPE with equal streams held to RoPE; decode held
+     to ``forward``) and (h) musicgen-medium (every codebook's logits held
+     to ``forward``, also with fp32 products).  No kernel runs on this
+     path (the reference's is plain JAX too);
  13. the report: one JSON line per the six kernels, then the last line,
      {"ok": true, "device": {...}}.
 
@@ -170,6 +184,11 @@ CE_SHAPES = (  # (T, D, V, valid_v): main-path shape, then ragged ones
     (4096, 2048, 163_840, 163_840),
     (4096, 6144, 100_352, 100_352),
     (4096, 4096, 256_000, 256_000),  # recurrentgemma-9b (8-CTA clusters)
+    # slice 11: xlstm-1.3b on route 1 (8-CTA clusters), V = 50,304 not a
+    # multiple of the 256-row TMA box pair: a ragged last vocab block;
+    # musicgen-medium's codebook head on route 1 in 6-CTA clusters
+    (4096, 2048, 50_304, 50_304),
+    (4096, 1536, 2048, 2048),
     # ragged wide shapes: route 2 just past 2,048 and just past 4,096
     # columns (a non-portable 9-CTA cluster); route 2 with D % 8 != 0 (the
     # staged route); the SIMT route past 8,192
@@ -184,7 +203,9 @@ CE_WIDE = {"qwen2-7b": (3584, 152_064, 152_064), "granite-3-8b": (4096, 49_280, 
            "nemotron-4-15b": (6144, 256_000, 256_000),
            "moonshot-v1-16b-a3b": (2048, 163_840, 163_840),
            "dbrx-132b": (6144, 100_352, 100_352),
-           "recurrentgemma-9b": (4096, 256_000, 256_000)}
+           "recurrentgemma-9b": (4096, 256_000, 256_000),
+           "xlstm-1.3b": (2048, 50_304, 50_304), "qwen2-vl-7b": (3584, 152_064, 152_064),
+           "musicgen-medium": (1536, 2048, 2048)}
 CE_TIMED = {"bfloat16": 5, "float32": 3}  # CUDA-event-timed launches
 PROXY_TIMED = 5  # CUDA-event-timed calls of each proxy path at full width
 # Device memory still allocated after a trainer is deleted; its parameters
@@ -201,7 +222,19 @@ FREED_GB = 4.0
 # of its layers with AdamW alone needs 71.9 GB.
 WIDE_LM = {"qwen2-7b": (8, True), "granite-3-8b": (8, True), "nemotron-4-15b": (2, True),
            "moonshot-v1-16b-a3b": (4, True), "dbrx-132b": (2, False),
-           "recurrentgemma-9b": (3, True)}
+           "recurrentgemma-9b": (3, True), "xlstm-1.3b": (8, True)}
+# Slice 11's configs with a stub modality frontend, trained through
+# ``make_train_step`` and ``make_select_step`` on seeded batches in the
+# reference's ``train_batch_struct`` layout (the ``Trainer`` reads a token
+# stream): (layers kept or None for all, full-data steps).  qwen2-vl-7b
+# keeps 8 of 28 layers (2.41 B, 38.6 GB at 16 bytes a parameter, as
+# qwen2-7b); musicgen-medium trains whole (1.37 B, 21.9 GB).  xlstm-1.3b
+# (WIDE_LM) keeps one (7 × mlstm, slstm) period, 8 of 48 layers (0.41 B):
+# a cut for time, not memory, since its sLSTM runs a 512-step loop a layer.
+WIDE_EMB = {"qwen2-vl-7b": (8, 8), "musicgen-medium": (None, 8)}
+# The image grid (rows, columns) among a training sequence's LM_SEQ
+# positions: 64 text tokens, 16 × 24 patches, 64 text tokens.
+TRAIN_GRID = (64, 16, 24)
 # A pool of 64 docs, 8 batches of 8 × 512 tokens a refresh: epoch 0 is 8
 # full-data steps (v1 selected at step 0); step 9 installs v1 and selects
 # v2.  Two refreshes, one install.
@@ -290,6 +323,41 @@ SERVE_CELLS = {
 # the last RING_KEEP steps held to forward within RING_TOL (the reference's
 # recurrent-family bound); forward at BLOCK_T > 2·window.
 RING_T, RING_KEEP, BLOCK_T, RING_TOL = 2112, 64, 5120, 4e-2
+# Slice 11's serving cells, as SERVE_CELLS; prefill and decode over seeded
+# embeddings where the frontend is a stub (no greedy run: the reference's
+# generator feeds back tokens).  xlstm-1.3b (5.7 GB), qwen2-vl-7b (28.3
+# GB) and musicgen-medium (5.5 GB) serve whole.  vlm: the reference's
+# 2e-2, as qwen3-1.7b's 28 layers.  xlstm and musicgen: the reference's
+# gates (tests/test_models_consistency.py: 4e-2 at 4 xlstm layers, 2e-2 at
+# 2 musicgen layers, 24 steps) do not hold at 48 layers, not even for the
+# reference: at smoke width its own xLSTM decode is 6.7e-2 off its forward
+# at 48 layers, and its musicgen decode 2.3e-2 off the port's
+# (tests/test_torch_decode.py::test_decode_at_depth_is_the_references).
+# So each bound is SERVE_MARGIN × the larger of the cell's two readings
+# on an H100 (chip_variants.py --serve-probe, seeded as here, so the same
+# every run): decode against forward and prefill's last logits against
+# decode's, xlstm 0.1858 and 0.2099 (3.35e-2 over the reference's 4
+# layers and 24 steps: its states integrate their bf16 inputs' rounding
+# along the sequence, 2.1e-2 at step 0, 0.210 at step 63), musicgen
+# 2.099e-2 and 1.766e-2 (4.0e-3 at 2 layers).  With every product in fp32
+# (FP32_DECODE_TOL) the same margin over 2.101e-5 (xlstm) and 2.617e-3
+# (musicgen: the bf16 KV cache's rounding).
+SERVE_MARGIN = 1.25
+SERVE_EMB_CELLS = {
+    "(f)": ("xlstm-1.3b", None, (2, 1024), (2, 64), (4, 64, 64), 2, SERVE_MARGIN * 0.2099),
+    "(g)": ("qwen2-vl-7b", None, (2, 4096), (2, 64), None, 0, 2e-2),
+    "(h)": ("musicgen-medium", None, (2, 4096), (2, 64), None, 0, SERVE_MARGIN * 2.099e-2),
+}
+FP32_DECODE_TOL = {"(f)": SERVE_MARGIN * 2.101e-5, "(h)": SERVE_MARGIN * 2.617e-3}
+# (g)'s prompt, after arXiv:2409.12191: 1,024 text positions, a 32 × 64
+# patch grid (t fixed, h and w over the grid), then text that resumes
+# after the grid's largest position.
+SERVE_GRID = (1024, 32, 64)
+# Remat on the card: one qwen3-1.7b training step of 8 × 512 tokens under
+# each policy, the same seed and batch.  Gradients are held per tensor to
+# REMAT_TOL·max|g|: the recompute repeats each bf16 op, but the embedding's
+# scattered backward adds in fp32 in no fixed order.
+REMAT_POLICIES, REMAT_TOL = ("nothing", "dots", "full"), 1e-4
 
 # Published dense peaks (NVIDIA data sheet, H100 SXM): fp32 on the CUDA
 # cores, bf16 on the tensor cores, and device-memory bandwidth, keyed by
@@ -590,7 +658,7 @@ def hold_fused_proxies(torch, cfg, params, batch) -> dict:
     fused = proxy_features_fused(params, cfg, batch)
     einsum = proxy_features(params, cfg, batch)
     torch.cuda.synchronize()
-    B = batch["tokens"].shape[0]
+    B = batch["labels"].shape[0]
     if fused.shape != (B, cfg.d_model) or not bool(torch.isfinite(fused).all()):
         raise AssertionError(f"{cfg.name} fused proxies: shape {tuple(fused.shape)} or "
                              "non-finite")
@@ -603,8 +671,9 @@ def hold_fused_proxies(torch, cfg, params, batch) -> dict:
 
 def proxy_ms(torch, ops, cfg, params, batch, whole: bool) -> dict:
     """Median ms of PROXY_TIMED calls per batch: the ``ce_proxy`` kernel
-    head and the einsum head on the same hidden states, and with ``whole``
-    both proxy paths forward included."""
+    head and the einsum head on the same hidden states (with codebook
+    heads: the first codebook's), and with ``whole`` both proxy paths
+    forward included."""
     from repro_torch.core.proxy import lm_unembed_input_proxy
     from repro_torch.models import (COMPUTE_DTYPE, forward, proxy_features,
                                     proxy_features_fused, unembed_matrix)
@@ -612,6 +681,8 @@ def proxy_ms(torch, ops, cfg, params, batch, whole: bool) -> dict:
     with torch.no_grad():
         hidden, _ = forward(params, cfg, batch)
         w, labels = unembed_matrix(params), batch["labels"]
+        if cfg.n_codebooks > 1:
+            w, labels = w[0], labels[..., 0]
         h2, y2 = hidden.reshape(-1, cfg.d_model), labels.reshape(-1)
         fns = {
             "kernel head": lambda: ops.ce_proxy(
@@ -627,13 +698,13 @@ def proxy_ms(torch, ops, cfg, params, batch, whole: bool) -> dict:
 
 
 def count_params(cfg, params) -> int:
-    """The parameters' element count, held to the config's: param_count()
-    counts the real vocabulary, the tables hold padded rows; it leaves out
-    each RG-LRU layer's Λ and gate biases (3·d_rnn), as the reference's."""
+    """The parameters' element count, held to the config's
+    (``models.model.stored_param_count``: the reference's ``param_count()``
+    with padded vocabulary rows and what it leaves out)."""
+    from repro_torch.models.model import stored_param_count
+
     n = sum(p.numel() for p in params.values())
-    tables = 1 if cfg.tie_embeddings else 2
-    expected = cfg.param_count() + tables * (cfg.padded_vocab - cfg.vocab_size) * cfg.d_model
-    expected += 3 * (cfg.d_rnn or cfg.d_model) * cfg.layer_kinds.count("rglru")
+    expected = stored_param_count(cfg)
     if n != expected:
         raise AssertionError(f"{cfg.name}: {n} parameters, config says {expected}")
     return n
@@ -876,9 +947,208 @@ def wide_lm_training(torch, ops, card, dev) -> dict:
             out[name] = refresh_forward_only(torch, ops, card, dev, cfg, WIDE_DOCS,
                                              "published width")
         log(f"[9] {name}: {time.perf_counter() - tc:.1f}s")
+    for name, (layers, steps) in WIDE_EMB.items():
+        out[name] = emb_lm_training(torch, ops, card, dev, name, layers, steps)
+    t1 = time.perf_counter()
+    remat_policies(torch, card, dev)
+    log(f"[9] remat: {time.perf_counter() - t1:.1f}s")
     train_round_trip(card)
     log(f"[9] phase total {time.perf_counter() - t0:.1f}s")
     return out
+
+
+def zipf_labels(torch, cfg, dev, shape: tuple, gen):
+    """Seeded labels with a Zipf marginal over the real vocabulary (p(k) ∝
+    1/(k + 1)): a stub frontend's batches carry no token stream, and a
+    skewed marginal is what a model learns first, so the loss falls within
+    a few steps."""
+    p = 1.0 / torch.arange(1, cfg.vocab_size + 1, device=dev, dtype=torch.float32)
+    n = math.prod(shape)
+    return torch.multinomial(p / p.sum(), n, replacement=True, generator=gen).reshape(shape)
+
+
+def emb_batches(torch, cfg, dev, n: int, seed: int) -> list:
+    """``n`` seeded batches of LM_BATCH × LM_SEQ in the reference's
+    ``train_batch_struct`` layout: ``embeddings`` (B, T, D) bf16,
+    ``labels`` (B, T) or (B, T, C), under M-RoPE ``positions`` (B, 3, T)
+    holding an image grid (TRAIN_GRID), ``weights`` (B,) of ones."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    shape = (LM_BATCH, LM_SEQ) + ((cfg.n_codebooks,) if cfg.n_codebooks > 1 else ())
+    out = []
+    for _ in range(n):
+        b = {"embeddings": torch.randn(LM_BATCH, LM_SEQ, cfg.d_model, device=dev,
+                                       generator=gen).to(torch.bfloat16),
+             "labels": zipf_labels(torch, cfg, dev, shape, gen),
+             "weights": torch.ones(LM_BATCH, device=dev)}
+        if cfg.mrope_sections is not None:
+            b["positions"] = grid_positions(torch, dev, LM_BATCH, *TRAIN_GRID)
+        out.append(b)
+    return out
+
+
+def emb_lm_training(torch, ops, card, dev, name: str, layers, steps: int) -> dict:
+    """Phase 9, a stub-frontend config at published width: ``steps``
+    full-data steps of ``make_train_step`` on seeded batches, one CRAIG
+    selection over a WIDE_DOCS-doc pool of such batches (``make_select_step``:
+    one ``ce_proxy`` launch a batch and codebook; ``CraigSelector``, Σγ =
+    WIDE_DOCS), then γ-weighted steps on the coreset.  Counts are zeroed
+    just before the selection and read just after.  Gates: finite losses
+    that fall, the launches, Σγ, and the trained model's fused proxies
+    held to the einsum proxies (``hold_fused_proxies``)."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.craig import CraigConfig, CraigSelector
+    from repro_torch.models import init_params, loss_fn
+    from repro_torch.optim import adamw, warmup_cosine
+    from repro_torch.train.train_step import make_select_step, make_train_step
+
+    cfg = get_config(name)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    if (cfg.d_model, cfg.padded_vocab, cfg.vocab_size) != CE_WIDE[name]:
+        raise AssertionError(f"{name}: CE_WIDE {CE_WIDE[name]} is not the config's shape")
+    tag = "published width"
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    n_params = count_params(cfg, params)
+    pool_batches = WIDE_DOCS // LM_BATCH
+    pool = emb_batches(torch, cfg, dev, pool_batches, 1)
+    train = emb_batches(torch, cfg, dev, steps, 2)
+    n_core = round(LM_FRACTION * WIDE_DOCS)
+    opt = adamw(warmup_cosine(WIDE_LR, 2, steps + -(-n_core // LM_BATCH)))
+    state = opt.init(params)
+    step = make_train_step(cfg, opt)
+
+    def held_loss():  # the first batch's loss, the same tokens before and after
+        with torch.no_grad():
+            return float(loss_fn(params, cfg, train[0])[1]["loss"])
+
+    before = held_loss()
+    losses, times = [], []
+    for b in train:
+        torch.cuda.synchronize()
+        ts = time.perf_counter()
+        params, state, m = step(params, state, b)
+        losses.append(float(m["loss"]))
+        times.append(time.perf_counter() - ts)
+    after = held_loss()
+    select = make_select_step(cfg)
+    torch.cuda.synchronize()
+    for k in ops.LAUNCHES:
+        ops.LAUNCHES[k] = 0
+    ts = time.perf_counter()
+    with torch.no_grad():
+        feats = torch.cat([select(params, b) for b in pool])
+    torch.cuda.synchronize()
+    extract_s = time.perf_counter() - ts
+    sel = CraigSelector(CraigConfig(fraction=LM_FRACTION, per_class=False), device=dev).select(feats)
+    torch.cuda.synchronize()
+    select_s = time.perf_counter() - ts - extract_s
+    launches = dict(ops.LAUNCHES)
+    if feats.shape != (WIDE_DOCS, cfg.d_model) or not bool(torch.isfinite(feats).all()):
+        raise AssertionError(f"{name}: features {tuple(feats.shape)} or non-finite")
+    if launches["ce_proxy"] != pool_batches * cfg.n_codebooks:
+        raise AssertionError(f"{name}: ce_proxy launched {launches}; expected {pool_batches} "
+                             f"batches × {cfg.n_codebooks} codebooks")
+    wsum = float(np.sum(sel.weights, dtype=np.float64))
+    if abs(wsum - WIDE_DOCS) > 1e-3 or sel.size != n_core:
+        raise AssertionError(f"{name}: coreset {sel.size} (want {n_core}), Σγ {wsum}")
+    # γ-weighted steps on the coreset, LM_BATCH docs a step, in greedy order
+    idx = torch.as_tensor(sel.indices, device=dev)
+    gamma = torch.as_tensor(sel.weights, device=dev, dtype=torch.float32)
+    docs = {k: torch.cat([b[k] for b in pool]) for k in pool[0]}
+    for lo in range(0, sel.size, LM_BATCH):
+        rows = idx[lo:lo + LM_BATCH]
+        b = {k: v[rows] for k, v in docs.items()}
+        b["weights"] = gamma[lo:lo + LM_BATCH]
+        params, state, m = step(params, state, b)
+        losses.append(float(m["loss"]))
+    if not all(math.isfinite(v) for v in losses) or not after < before:
+        raise AssertionError(f"{name}: step losses {losses}; first batch's loss {before} → "
+                             f"{after} over the full-data steps")
+    held = hold_fused_proxies(torch, cfg, params, train[0])
+    ms = proxy_ms(torch, ops, cfg, params, train[0], whole=False)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    step_s = statistics.median(times[2:])
+    log(f"[9] {tag}: {name} ({cfg.n_layers} of {published_layers(cfg)} layers, {n_params:,} "
+        f"params) make_train_step on seeded {LM_BATCH}×{LM_SEQ} embeddings batches"
+        f"{' with image-grid positions' if cfg.mrope_sections else ''}, labels "
+        f"{tuple(train[0]['labels'].shape)}: {steps} full-data steps, loss {losses[0]:.4f} → "
+        f"{losses[steps - 1]:.4f} (the first batch's {before:.4f} → {after:.4f}), median "
+        f"{step_s:.4f} s/step; select over {WIDE_DOCS} docs: "
+        f"extract {extract_s:.3f}s ({launches['ce_proxy']} ce_proxy launches), select "
+        f"{select_s:.3f}s, coreset {sel.size}, Σγ {wsum:.0f}; {len(losses) - steps} γ-weighted "
+        f"steps, loss → {losses[-1]:.4f}; max_memory_allocated {peak_gb:.2f} GB; {card}")
+    log(f"[9] {tag}: {name} fused proxies against einsum, max |err| {held['err']:.3e} (tol "
+        f"{held['tol']:.3e}); heads per {LM_BATCH}×{LM_SEQ} batch and codebook, median ms of "
+        f"{PROXY_TIMED} at D = {cfg.d_model}, V = {cfg.padded_vocab}: {ms}; "
+        f"{time.perf_counter() - t0:.1f}s; {card}")
+    del params, state, pool, train, docs, feats
+    torch.cuda.empty_cache()
+    left_gb = torch.cuda.memory_allocated() / 1e9
+    if left_gb > FREED_GB:
+        raise AssertionError(f"{name}: {left_gb:.2f} GB still allocated after training")
+    return {"launches": launches["ce_proxy"]}
+
+
+def remat_policies(torch, card, dev) -> None:
+    """Phase 9, remat on the card: one qwen3-1.7b training step of LM_BATCH
+    × LM_SEQ seeded tokens under each of REMAT_POLICIES, the same weights
+    and batch, each after a warm-up step.  Gates: equal losses; gradients
+    within REMAT_TOL·max|g| of 'nothing''s per tensor.  Logs each policy's
+    step time and peak memory ('dots' keeps each layer's x @ W outputs, so
+    its peak is expected between the other two)."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenStream, to_device
+    from repro_torch.models import init_params, loss_fn
+
+    cfg0 = get_config(LM_ARCH)
+    params = init_params(cfg0, torch.Generator(device=dev).manual_seed(0))
+    ds = TokenStream(n_docs=LM_BATCH, seq_len=LM_SEQ, vocab_size=cfg0.vocab_size)
+    batch = to_device(ds.batch(np.arange(LM_BATCH)), dev)
+    names = list(params)
+    ref, out = None, {}
+    for policy in REMAT_POLICIES:
+        cfg = dataclasses.replace(cfg0, remat_policy=policy)
+        for rep in range(2):
+            grads = None  # free the warm-up's before the timed step
+            leaves = [params[k].detach().requires_grad_(True) for k in names]
+            torch.cuda.synchronize()
+            base_gb = torch.cuda.memory_allocated() / 1e9
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            total, _ = loss_fn(dict(zip(names, leaves)), cfg, batch)
+            grads = torch.autograd.grad(total, leaves)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9 - base_gb
+            del leaves
+        loss = total.item()
+        if ref is None:
+            ref = (loss, grads)
+            err = 0.0
+        else:
+            if loss != ref[0]:
+                raise AssertionError(f"remat {policy!r}: loss {loss} != {ref[0]} ('nothing')")
+            err = max(float((g - r).abs().max()) / (float(r.abs().max()) + 1e-30)
+                      for g, r in zip(grads, ref[1]))
+            if err > REMAT_TOL:
+                raise AssertionError(f"remat {policy!r}: gradients {err:.3e} of max|g| off "
+                                     f"'nothing''s (tol {REMAT_TOL})")
+            del grads
+        out[policy] = (secs, peak_gb, err)
+    log(f"[9] remat on {LM_ARCH} ({cfg0.n_layers} layers), one step of {LM_BATCH}×{LM_SEQ} "
+        f"tokens, loss {ref[0]:.6f} under every policy; (s a step, peak GB above the weights "
+        f"and batch, max gradient difference from 'nothing' / max|g|): "
+        f"{ {p: (round(a, 4), round(b, 2), float(f'{c:.3e}')) for p, (a, b, c) in out.items()} }; "
+        f"{card}")
+    del params, ref, batch
+    torch.cuda.empty_cache()
 
 
 def train_round_trip(card) -> None:
@@ -2108,20 +2378,63 @@ def seeded_tokens(torch, cfg, dev, B: int, T: int, seed: int):
     return torch.randint(0, cfg.vocab_size, (B, T), device=dev, generator=gen)
 
 
-def forced_decode(torch, cfg, params, tokens, keep: int) -> tuple:
-    """Teacher-force ``tokens`` (B, T) through ``decode_step`` from a fresh
-    serve state of T slots; returns the last ``keep`` steps' logits (B,
-    keep, V) and the ms a step (host clock, synchronised)."""
+def input_key(cfg) -> str:
+    return "tokens" if cfg.frontend == "tokens" else "embeddings"
+
+
+def seeded_inputs(torch, cfg, dev, B: int, T: int, seed: int):
+    """Seeded tokens (B, T), or for a stub modality frontend seeded
+    standard-normal embeddings (B, T, D) in bf16 (the frontend's output)."""
+    if cfg.frontend == "tokens":
+        return seeded_tokens(torch, cfg, dev, B, T, seed)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randn(B, T, cfg.d_model, device=dev, generator=gen).to(torch.bfloat16)
+
+
+def grid_positions(torch, dev, B: int, text: int, rows: int, cols: int):
+    """M-RoPE position ids (B, 3, T) of a prompt of ``text`` text tokens, a
+    rows × cols patch grid and as many text tokens again (arXiv:2409.12191):
+    text advances the three streams together; a patch keeps t at the
+    grid's start and takes h and w from its row and column; the text after
+    the grid resumes one past the grid's largest position."""
+    head = torch.arange(text, device=dev)
+    r, c = torch.meshgrid(torch.arange(rows, device=dev), torch.arange(cols, device=dev),
+                          indexing="ij")
+    grid = torch.stack([torch.full((rows * cols,), text, device=dev), text + r.reshape(-1),
+                        text + c.reshape(-1)])
+    tail = text + max(rows, cols) + torch.arange(text, device=dev)
+    pos = torch.cat([head.expand(3, -1), grid, tail.expand(3, -1)], dim=1)
+    return pos.expand(B, 3, -1).contiguous()
+
+
+def head_logits(torch, params, hidden):
+    """fp32 logits of bf16 ``hidden`` (…, D): (…, V), or (…, C, V) with
+    codebook heads."""
+    from repro_torch.models import COMPUTE_DTYPE, unembed_matrix
+
+    w = unembed_matrix(params).to(COMPUTE_DTYPE)
+    h = hidden.to(COMPUTE_DTYPE)
+    if w.dim() == 3:
+        return torch.einsum("...d,cvd->...cv", h, w).float()
+    return (h @ w.T).float()
+
+
+def forced_decode(torch, cfg, params, inputs, keep: int) -> tuple:
+    """Teacher-force ``inputs`` (tokens (B, T) or embeddings (B, T, D))
+    through ``decode_step`` from a fresh serve state of T slots; returns
+    the last ``keep`` steps' logits (B, keep, [C,] V) and the ms a step
+    (host clock, synchronised)."""
     from repro_torch.models import decode_step, init_serve_state
 
-    B, T = tokens.shape
+    B, T = inputs.shape[:2]
+    key = input_key(cfg)
     outs = []
     with torch.inference_mode():
-        state = init_serve_state(cfg, B, T, tokens.device)
+        state = init_serve_state(cfg, B, T, inputs.device)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for t in range(T):
-            logits, state = decode_step(params, cfg, state, {"tokens": tokens[:, t:t + 1]})
+            logits, state = decode_step(params, cfg, state, {key: inputs[:, t:t + 1]})
             if t >= T - keep:
                 outs.append(logits)
         torch.cuda.synchronize()
@@ -2131,15 +2444,14 @@ def forced_decode(torch, cfg, params, tokens, keep: int) -> tuple:
     return torch.stack(outs, 1), ms
 
 
-def forward_logits(torch, cfg, params, tokens, keep: int):
+def forward_logits(torch, cfg, params, inputs, keep: int):
     """``forward``'s bf16 hidden @ unembed at the last ``keep`` positions,
     fp32 (the reference's forward-against-decode reference)."""
-    from repro_torch.models import COMPUTE_DTYPE, forward, unembed_matrix
+    from repro_torch.models import forward
 
     with torch.inference_mode():
-        hidden, _ = forward(params, cfg, {"tokens": tokens})
-        w = unembed_matrix(params).to(COMPUTE_DTYPE)
-        return (hidden[:, -keep:].to(COMPUTE_DTYPE) @ w.T).float()
+        hidden, _ = forward(params, cfg, {input_key(cfg): inputs})
+        return head_logits(torch, params, hidden[:, -keep:])
 
 
 def recorded_routes(torch, fn):
@@ -2186,7 +2498,7 @@ def routed_as(torch, fn, routes):
 
 
 def hold_decode(torch, cfg, params, tokens, tol: float, tag: str) -> dict:
-    """Teacher-forced decode of ``tokens`` held to ``forward`` within
+    """Teacher-forced decode of ``tokens`` (or embeddings) held to ``forward`` within
     ``tol`` (relative to max|ref|, every step), and ``prefill``'s last
     logits held to the decode path's last step within ``tol``.
 
@@ -2203,7 +2515,7 @@ def hold_decode(torch, cfg, params, tokens, tol: float, tag: str) -> dict:
     ``tol``·max|logits|."""
     from repro_torch.serve import make_prefill_step
 
-    B, T = tokens.shape
+    B, T = tokens.shape[:2]
     routes, flips = None, ""
     if cfg.n_experts:
         cfg = dataclasses.replace(cfg, capacity_factor=cfg.n_experts / cfg.top_k)
@@ -2217,7 +2529,7 @@ def hold_decode(torch, cfg, params, tokens, tol: float, tag: str) -> dict:
 
     def prefill_fn():
         with torch.inference_mode():
-            return make_prefill_step(cfg)(params, {"tokens": tokens})
+            return make_prefill_step(cfg)(params, {input_key(cfg): tokens})
 
     if not bool(torch.isfinite(got).all()):
         raise AssertionError(f"{tag}: non-finite decode logits")
@@ -2249,9 +2561,10 @@ def hold_decode(torch, cfg, params, tokens, tol: float, tag: str) -> dict:
     return {"err": err, "err_prefill": err_last, "forced_ms": ms, "flips": flips}
 
 
-def timed_prefill(torch, cfg, params, tokens, reps: int = 3) -> float:
-    """Median seconds of ``make_prefill_step`` on ``tokens`` (host clock,
-    synchronised) after one warm-up; the logits are checked finite."""
+def timed_prefill(torch, cfg, params, batch: dict, reps: int = 3) -> float:
+    """Median seconds of ``make_prefill_step`` on ``batch`` (host clock,
+    synchronised) after one warm-up; the logits, (B, V) or (B, C, V), are
+    checked finite."""
     from repro_torch.serve import make_prefill_step
 
     step = make_prefill_step(cfg)
@@ -2260,11 +2573,14 @@ def timed_prefill(torch, cfg, params, tokens, reps: int = 3) -> float:
         for i in range(reps + 1):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            logits = step(params, {"tokens": tokens})
+            logits = step(params, batch)
             torch.cuda.synchronize()
             if i:
                 times.append(time.perf_counter() - t0)
-    if logits.shape != (tokens.shape[0], cfg.padded_vocab) or not bool(torch.isfinite(logits).all()):
+    B = batch[input_key(cfg)].shape[0]
+    shape = (B, cfg.padded_vocab) if cfg.n_codebooks == 1 else (B, cfg.n_codebooks,
+                                                                  cfg.padded_vocab)
+    if logits.shape != shape or not bool(torch.isfinite(logits).all()):
         raise AssertionError(f"{cfg.name} prefill: logits {tuple(logits.shape)} or non-finite")
     return statistics.median(times)
 
@@ -2295,43 +2611,99 @@ def timed_generate(torch, cfg, params, prompts, new: int, runs: int, tag: str) -
 
 
 def serve_cell(torch, card, dev, cfg, tag: str, prefill_bt: tuple, forced_bt: tuple,
-               gen: tuple, runs: int, tol: float, mem_bw: float) -> None:
+               gen: tuple | None, runs: int, tol: float, mem_bw: float, check=None) -> None:
     """One model through the serving path: ``make_prefill_step`` timed on
-    ``prefill_bt`` seeded tokens, the teacher-forced decode of
-    ``forced_bt`` tokens held to ``forward`` within ``tol``
-    (``hold_decode``), and ``greedy_generate`` of ``gen`` = (batch,
-    prompt, new) ``runs`` times.  The decode step's floor: its fp32 weights (all but
-    the embedding table, of which it gathers B rows) read once at the
-    card's memory rate; every weight is cast to bf16 at its product, which
-    doubles the bytes."""
+    ``prefill_bt`` seeded tokens or embeddings (under M-RoPE with the image
+    grid of SERVE_GRID), the teacher-forced decode of ``forced_bt`` held to
+    ``forward`` within ``tol`` (``hold_decode``), and ``greedy_generate``
+    of ``gen`` = (batch, prompt, new) ``runs`` times (none for a stub
+    frontend); then ``check(params)``.  The decode step's floor: its fp32
+    weights (all but the embedding table, of which it gathers B rows) read
+    once at the card's memory rate; every weight is cast to bf16 at its
+    product, which doubles the bytes."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params, n_params = serve_params(torch, cfg, dev)
     init_s = time.perf_counter() - t0
-    prefill_s = timed_prefill(torch, cfg, params, seeded_tokens(torch, cfg, dev, *prefill_bt, 1))
-    held = hold_decode(torch, cfg, params, seeded_tokens(torch, cfg, dev, *forced_bt, 2),
+    batch = {input_key(cfg): seeded_inputs(torch, cfg, dev, *prefill_bt, 1)}
+    if cfg.mrope_sections is not None:
+        batch["positions"] = grid_positions(torch, dev, prefill_bt[0], *SERVE_GRID)
+    prefill_s = timed_prefill(torch, cfg, params, batch)
+    del batch
+    held = hold_decode(torch, cfg, params, seeded_inputs(torch, cfg, dev, *forced_bt, 2),
                        tol, tag)
-    B, T, new = gen
-    g = timed_generate(torch, cfg, params, seeded_tokens(torch, cfg, dev, B, T, 3), new, runs, tag)
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    read = n_params - (0 if cfg.tie_embeddings else cfg.padded_vocab * cfg.d_model)
-    floor_ms = 1e3 * 4 * read / mem_bw
+    table = cfg.padded_vocab * cfg.d_model if "embed" in params and "unembed" in params else 0
+    floor_ms = 1e3 * 4 * (n_params - table) / mem_bw
+    grid = " (image-grid positions)" if cfg.mrope_sections is not None else ""
     log(f"[12] {tag}: {cfg.name} ({cfg.n_layers} of {published_layers(cfg)} layers, "
         f"{n_params:,} params, {4 * n_params / 1e9:.1f} GB fp32, seeded in {init_s:.1f}s); "
-        f"prefill {prefill_bt[0]}×{prefill_bt[1]} tokens {prefill_s:.4f}s "
+        f"prefill {prefill_bt[0]}×{prefill_bt[1]} {input_key(cfg)}{grid} {prefill_s:.4f}s "
         f"({prefill_bt[0] * prefill_bt[1] / prefill_s:.0f} tokens/s); teacher-forced decode "
         f"{forced_bt[0]}×{forced_bt[1]}: {held['forced_ms']:.2f} ms a step, against forward "
         f"rel err {held['err']:.3e}, prefill's last logits {held['err_prefill']:.3e} (tol "
-        f"{tol}){held['flips']}")
-    log(f"[12] {tag}: greedy_generate batch {B}, prompt {T}, {new} new, {runs}× equal: "
-        f"{g['gen_s']:.3f}s a run, {g['step_ms']:.2f} ms a decode step ({T + new} steps), "
-        f"{g['tok_s']:.0f} tokens/s; floor of a step: its fp32 weights (all but the "
-        f"embedding table) read once {floor_ms:.2f} ms, {2 * floor_ms:.2f} ms with the bf16 "
-        f"copies written and read; max_memory_allocated {peak_gb:.2f} GB; sample "
-        f"{g['sample']}; {card}")
+        f"{tol:.4g}){held['flips']}; floor of a step: its fp32 weights (all but the embedding "
+        f"table) read once {floor_ms:.2f} ms, {2 * floor_ms:.2f} ms with the bf16 copies "
+        f"written and read; {card}")
+    if gen is not None:
+        B, T, new = gen
+        g = timed_generate(torch, cfg, params, seeded_tokens(torch, cfg, dev, B, T, 3), new,
+                           runs, tag)
+        log(f"[12] {tag}: greedy_generate batch {B}, prompt {T}, {new} new, {runs}× equal: "
+            f"{g['gen_s']:.3f}s a run, {g['step_ms']:.2f} ms a decode step ({T + new} steps), "
+            f"{g['tok_s']:.0f} tokens/s; sample {g['sample']}; {card}")
+    if check is not None:
+        check(params)
+    log(f"[12] {tag}: max_memory_allocated {torch.cuda.max_memory_allocated() / 1e9:.2f} GB; "
+        f"{card}")
     del params
     torch.cuda.empty_cache()
+
+
+def fp32_decode(torch, card, dev, cfg, params, tag: str) -> None:
+    """Phase 12 (f), (h): the teacher-forced decode held to ``forward``
+    with every product in fp32 (``COMPUTE_DTYPE`` float32 for the check),
+    within FP32_DECODE_TOL[tag]: what is left is the two forms' own fp32
+    difference and the bf16 KV cache's rounding, not bf16 products."""
+    import repro_torch.models as M
+
+    forced, tol = SERVE_EMB_CELLS[tag][3], FP32_DECODE_TOL[tag]
+    tokens = seeded_inputs(torch, cfg, dev, *forced, 2)
+    M.COMPUTE_DTYPE = M.model.COMPUTE_DTYPE = torch.float32
+    try:
+        got, ms = forced_decode(torch, cfg, params, tokens, forced[1])
+        want = forward_logits(torch, cfg, params, tokens, forced[1])
+    finally:
+        M.COMPUTE_DTYPE = M.model.COMPUTE_DTYPE = torch.bfloat16
+    err = rel_err(torch, got, want)
+    if not bool(torch.isfinite(got).all()) or err > tol:
+        raise AssertionError(f"{tag} {cfg.name}: fp32 decode against forward, rel err "
+                             f"{err:.3e} > {tol}")
+    log(f"[12] {tag} {cfg.name}: with fp32 products, teacher-forced decode {forced[0]}×"
+        f"{forced[1]} against forward rel err {err:.3e} (tol {tol}), {ms:.2f} ms a step; "
+        f"{card}")
+
+
+def mrope_equals_rope(torch, card, dev, cfg, params) -> None:
+    """Phase 12 (g): the whole model's hidden states under M-RoPE with three
+    equal position streams against the same weights under RoPE (the
+    reference's ``tests/test_attention.py`` mrope-reduces-to-rope check, at
+    full width and depth): within 1e-5 of max|RoPE|."""
+    from repro_torch.models import forward
+
+    B, T = 2, LM_SEQ
+    x = seeded_inputs(torch, cfg, dev, B, T, 7)
+    pos = torch.arange(T, device=dev).expand(B, T)
+    with torch.inference_mode():
+        h3, _ = forward(params, cfg, {"embeddings": x, "positions": pos[:, None].expand(B, 3, T)})
+        h1, _ = forward(params, dataclasses.replace(cfg, mrope_sections=None),
+                        {"embeddings": x, "positions": pos})
+    err = rel_err(torch, h3.float(), h1.float())
+    if not bool(torch.isfinite(h3).all()) or err > 1e-5:
+        raise AssertionError(f"{cfg.name}: M-RoPE with equal streams against RoPE, rel err "
+                             f"{err:.3e} > 1e-5")
+    log(f"[12] (g) {cfg.name}: M-RoPE {cfg.mrope_sections} with three equal streams against "
+        f"RoPE on the same weights, hidden states {B}×{T}: rel err {err:.3e} (tol 1e-5); {card}")
 
 
 def ring_wrap(torch, card, dev) -> None:
@@ -2430,16 +2802,20 @@ def serving(torch, card, dev, mem_bw: float) -> None:
     """Phase 12: (a) qwen3-1.7b and (b) recurrentgemma-9b at full published
     depth and width, (c) the ring wrap and the blockwise windowed path,
     (d) moonshot-v1-16b-a3b at published width with depth cut (the MoE FFN
-    in decode), (e) the two serving subprocesses."""
+    in decode), (e) the two serving subprocesses; slice 11's (f)
+    xlstm-1.3b, (g) qwen2-vl-7b (with the M-RoPE against RoPE check) and
+    (h) musicgen-medium at full published depth and width."""
     from repro_torch.configs import get_config
 
-    def cell(tag):
-        name, layers, prefill_bt, forced_bt, gen, runs, tol = SERVE_CELLS[tag]
+    def cell(tag, check=None):
+        name, layers, prefill_bt, forced_bt, gen, runs, tol = {**SERVE_CELLS,
+                                                               **SERVE_EMB_CELLS}[tag]
         cfg = get_config(name)
         if layers is not None:
             cfg = dataclasses.replace(cfg, n_layers=layers)
         t0 = time.perf_counter()
-        serve_cell(torch, card, dev, cfg, tag, prefill_bt, forced_bt, gen, runs, tol, mem_bw)
+        serve_cell(torch, card, dev, cfg, tag, prefill_bt, forced_bt, gen, runs, tol, mem_bw,
+                   None if check is None else lambda params: check(torch, card, dev, cfg, params))
         log(f"[12] {tag}: {time.perf_counter() - t0:.1f}s")
 
     cell("(a)")
@@ -2449,6 +2825,9 @@ def serving(torch, card, dev, mem_bw: float) -> None:
     log(f"[12] (c): {time.perf_counter() - t0:.1f}s")
     cell("(d)")
     serve_subprocesses(card)
+    cell("(f)", lambda *a: fp32_decode(*a, "(f)"))
+    cell("(g)", mrope_equals_rope)
+    cell("(h)", lambda *a: fp32_decode(*a, "(h)"))
 
 
 def main() -> None:

@@ -74,11 +74,27 @@ committed kernel, in one process on one card:
                          LR_PROBE, logging the step losses.  A run whose
                          last loss is not below its first is logged as
                          such; any other failure raises.
-  --serve-probe          chip_smoke.py phase 12's forward-against-decode
-                         error, taken apart: qwen3-1.7b and
-                         recurrentgemma-9b at full depth with cuBLAS's
-                         reduced-precision bf16 reductions on and off, then
-                         the first k layers of the same weights; and
+  --silu-probe           one qwen3-1.7b training step (28 layers, 8 × 512
+                         tokens, ``make_train_step`` with AdamW, as
+                         chip_smoke.py's phase 6 steps) with the gated
+                         FFN's SiLU as ``layers._silu`` (op by op in bf16,
+                         as ``jax.nn.silu`` rounds) and as ``F.silu`` (one
+                         fused kernel), alternated; and the activation
+                         alone at the FFN's (4,096, 6,144) bf16, forward
+                         and backward.
+  --count-ops            on the CPU, no card needed: the dispatcher calls
+                         of one sLSTM scan step and of one decode step of
+                         each xLSTM layer kind (``torch.profiler``).
+  --serve-probe [ARCH …] chip_smoke.py phase 12's forward-against-decode
+                         error, taken apart: qwen3-1.7b, recurrentgemma-9b,
+                         xlstm-1.3b and musicgen-medium (or the ARCHs
+                         named) at full depth with cuBLAS's
+                         reduced-precision bf16 reductions on and off and
+                         with fp32 products, then the first k layers of
+                         the same weights, over all 64 steps and over the
+                         first 24 (the reference's own gates hold 24 steps
+                         at 2 to 5 layers: chip_smoke.py's SERVE_EMB_CELLS
+                         grow them by the ratio read here); and
                          moonshot-v1-16b-a3b at 8 layers with the forward
                          routed natively, counting the token-layers whose
                          expert sets differ from the decode step's.
@@ -698,35 +714,68 @@ def replay_baseline(torch, cs, path: Path) -> None:
     use_library("fl_replay", None)
 
 
-SERVE_PROBE_DEPTHS = {"qwen3-1.7b": (4, 8, 16), "recurrentgemma-9b": (3, 6, 12, 24)}
+SERVE_PROBE_DEPTHS = {"qwen3-1.7b": (4, 8, 16), "recurrentgemma-9b": (3, 6, 12, 24),
+                      "xlstm-1.3b": (4, 8, 16, 24), "musicgen-medium": (2, 8, 24)}
 
 
-def serve_probe(torch, cs) -> None:
+def prefill_last(torch, cs, cfg, params, tokens):
+    """``make_prefill_step``'s last logits of ``tokens`` (or embeddings)."""
+    from repro_torch.serve import make_prefill_step
+
+    with torch.inference_mode():
+        return make_prefill_step(cfg)(params, {cs.input_key(cfg): tokens})
+
+
+def serve_probe(torch, cs, names) -> None:
     import dataclasses
 
+    import repro_torch.models as M
     from repro_torch.configs import get_config
 
     dev = torch.device("cuda")
-    for name, depths in SERVE_PROBE_DEPTHS.items():
+    for name in names or SERVE_PROBE_DEPTHS:
+        depths = SERVE_PROBE_DEPTHS[name]
         cfg = get_config(name)
         params, _ = cs.serve_params(torch, cfg, dev)
-        tokens = cs.seeded_tokens(torch, cfg, dev, 2, 64, 2)
+        tokens = cs.seeded_inputs(torch, cfg, dev, 2, 64, 2)
         for reduced in (True, False):
             torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = reduced
             got, _ = cs.forced_decode(torch, cfg, params, tokens, 64)
             want = cs.forward_logits(torch, cfg, params, tokens, 64)
             log(f"[serve] {name}, {cfg.n_layers} layers, reduced-precision bf16 reductions "
                 f"{reduced}: decode against forward {cs.rel_err(torch, got, want):.4e}")
+            if reduced:
+                last = prefill_last(torch, cs, cfg, params, tokens)
+                log(f"[serve] {name}, bf16, prefill's last logits against decode's "
+                    f"{cs.rel_err(torch, got[:, -1], last):.4e}")
+                by_step = [f"{cs.rel_err(torch, got[:, t], want[:, t]):.2e}"
+                           for t in (0, 15, 31, 63)]
+                log(f"[serve] {name}, bf16, at steps 0, 15, 31, 63: {by_step}")
         torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = True
+        # the same in fp32 (KV caches stay bf16, as the reference's): what
+        # is left is the two forms' own difference, not bf16 rounding
+        M.COMPUTE_DTYPE = M.model.COMPUTE_DTYPE = torch.float32
+        try:
+            got, _ = cs.forced_decode(torch, cfg, params, tokens, 64)
+            want = cs.forward_logits(torch, cfg, params, tokens, 64)
+        finally:
+            M.COMPUTE_DTYPE = M.model.COMPUTE_DTYPE = torch.bfloat16
+        log(f"[serve] {name}, {cfg.n_layers} layers, fp32 products: decode against forward "
+            f"{cs.rel_err(torch, got, want):.4e}")
+        step_err = [f"{cs.rel_err(torch, got[:, t], want[:, t]):.2e}" for t in (0, 15, 31, 63)]
+        log(f"[serve] {name}, fp32, at steps 0, 15, 31, 63: {step_err}")
         for k in depths:
             sub = {key: v for key, v in params.items()
                    if not key.startswith("layers.") or int(key.split(".")[1]) < k}
             c = dataclasses.replace(cfg, n_layers=k)
             got, _ = cs.forced_decode(torch, c, sub, tokens, 64)
             want = cs.forward_logits(torch, c, sub, tokens, 64)
-            log(f"[serve] {name}, first {k} layers: {cs.rel_err(torch, got, want):.4e}")
+            log(f"[serve] {name}, first {k} layers: {cs.rel_err(torch, got, want):.4e} over 64 "
+                f"steps, {cs.rel_err(torch, got[:, :24], want[:, :24]):.4e} over the first 24")
         del params, sub
         torch.cuda.empty_cache()
+    if names:
+        return
     cfg = dataclasses.replace(get_config("moonshot-v1-16b-a3b"), n_layers=8)
     cfg = dataclasses.replace(cfg, capacity_factor=cfg.n_experts / cfg.top_k)
     params, _ = cs.serve_params(torch, cfg, dev)
@@ -743,6 +792,91 @@ def serve_probe(torch, cs) -> None:
         f"token-layers routed to other expert sets")
 
 
+def silu_probe(torch, cs) -> None:
+    import statistics
+    import time
+
+    import numpy as np
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenStream, to_device
+    from repro_torch.models import init_params, layers
+    from repro_torch.optim import adamw, warmup_cosine
+    from repro_torch.train.train_step import make_train_step
+
+    dev = torch.device("cuda")
+    cfg = get_config(cs.LM_ARCH)
+    own = layers._ACTIVATIONS["silu"]
+    forms = {"layers._silu (op by op)": own, "F.silu (fused)": F.silu}
+    # the activation alone at the gated FFN's shape, forward and backward
+    x = torch.randn(cs.LM_BATCH * cs.LM_SEQ, cfg.d_ff, device=dev).to(torch.bfloat16)
+    for label, fn in forms.items():
+        xg = x.detach().requires_grad_(True)
+        fwd = lambda: fn(xg)  # noqa: E731
+        y = fn(xg)
+        g = torch.ones_like(y)
+        bwd = lambda: torch.autograd.grad(fn(xg), xg, g)  # noqa: E731
+        log(f"[silu] {label} on ({x.shape[0]}, {x.shape[1]}) bf16: forward "
+            f"{cs.median_ms(torch, fwd, 20):.4f} ms, forward and backward "
+            f"{cs.median_ms(torch, bwd, 20):.4f} ms")
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    ds = TokenStream(n_docs=cs.LM_BATCH, seq_len=cs.LM_SEQ, vocab_size=cfg.vocab_size)
+    batch = to_device(ds.batch(np.arange(cs.LM_BATCH)), dev)
+    opt = adamw(warmup_cosine(1e-4, 2, 100))
+    state = opt.init(params)
+    step = make_train_step(cfg, opt)
+    times = {k: [] for k in forms}
+    try:
+        for rnd in range(4):  # A, B, A, B
+            label = list(forms)[rnd % 2]
+            layers._ACTIVATIONS["silu"] = forms[label]
+            for i in range(6):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                params, state, m = step(params, state, batch)
+                torch.cuda.synchronize()
+                if i:  # the first step of a round warms up
+                    times[label].append(time.perf_counter() - t0)
+    finally:
+        layers._ACTIVATIONS["silu"] = own
+    for label, t in times.items():
+        log(f"[silu] {cfg.name} ({cfg.n_layers} layers), a training step of {cs.LM_BATCH}×"
+            f"{cs.LM_SEQ} tokens with {label}: median {statistics.median(t):.4f} s of {len(t)} "
+            f"(min {min(t):.4f}, max {max(t):.4f})")
+
+
+def count_ops(torch) -> None:
+    """The PyTorch dispatcher calls (``aten::`` ops, nested ones included,
+    counted by ``torch.profiler``) of one decode step of each xLSTM layer
+    kind and of one sLSTM scan step, at xlstm-1.3b's smoke width on the
+    CPU: what the host dispatches, whatever the width."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import blocks, recurrent as rec
+
+    cfg = smoke_config("xlstm-1.3b")
+    sc, mc = blocks.slstm_config(cfg), blocks.mlstm_config(cfg)
+    gen, cpu = torch.Generator().manual_seed(0), torch.device("cpu")
+    ps, pm = rec.init_slstm(sc, gen, cpu), rec.init_mlstm(mc, gen, cpu)
+    x = torch.randn(2, 1, cfg.d_model, generator=gen).to(torch.bfloat16)
+    wx = torch.randn(2, 4 * sc.n_heads * sc.d_head, generator=gen)
+    ss, ms = rec.init_slstm_state(sc, 2, cpu), rec.init_mlstm_state(mc, 2, cpu)
+    runs = {
+        "sLSTM scan step (_slstm_step)": lambda: rec._slstm_step(ps, sc, ss, wx),
+        "sLSTM decode step": lambda: rec.slstm_decode(ps, sc, x, ss),
+        "mLSTM decode step": lambda: rec.mlstm_decode(pm, mc, x, ms),
+    }
+    with torch.no_grad():
+        for name, fn in runs.items():
+            fn()
+            with profile(activities=[ProfilerActivity.CPU]) as prof:
+                fn()
+            n = sum(e.count for e in prof.key_averages() if e.key.startswith("aten::"))
+            log(f"[ops] {name}: {n} dispatcher calls (CPU, torch {torch.__version__})")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--ablate", action="store_true")
@@ -754,10 +888,16 @@ def main() -> None:
     ap.add_argument("--replay-baseline", type=Path)
     ap.add_argument("--twin-baseline", type=Path, nargs="+")
     ap.add_argument("--lr-probe", action="store_true")
-    ap.add_argument("--serve-probe", action="store_true")
+    ap.add_argument("--serve-probe", nargs="*", metavar="ARCH")
+    ap.add_argument("--count-ops", action="store_true")
+    ap.add_argument("--silu-probe", action="store_true")
     args = ap.parse_args()
     import torch
 
+    if args.count_ops:  # on the CPU: a count, not a time
+        sys.path.insert(0, str(ROOT / "src"))
+        count_ops(torch)
+        return
     if not torch.cuda.is_available():
         raise SystemExit("chip_variants: no CUDA card")
     sys.path.insert(0, str(ROOT / "src"))
@@ -784,8 +924,10 @@ def main() -> None:
         twin_baseline(torch, cs, args.twin_baseline)
     if args.lr_probe:
         lr_probe(torch, cs)
-    if args.serve_probe:
-        serve_probe(torch, cs)
+    if args.serve_probe is not None:
+        serve_probe(torch, cs, args.serve_probe)
+    if args.silu_probe:
+        silu_probe(torch, cs)
 
 
 if __name__ == "__main__":

@@ -1,10 +1,7 @@
 """Architecture registry: full configs and reduced smoke variants.
 
 Port of ``repro.configs.registry`` (``ARCHS``, ``get_config``,
-``smoke_config``).  Only the configurations the port runs are registered:
-the dense and MoE families and the Griffin hybrid (recurrentgemma-9b).
-The reference's other architectures come with their families (ROADMAP.md
-queue 1, item 6).
+``smoke_config``): the reference's ten architectures.
 """
 from __future__ import annotations
 
@@ -14,10 +11,13 @@ from repro_torch.configs import (
     dbrx_132b,
     granite_3_8b,
     moonshot_v1_16b_a3b,
+    musicgen_medium,
     nemotron_4_15b,
     qwen2_7b,
+    qwen2_vl_7b,
     qwen3_1_7b,
     recurrentgemma_9b,
+    xlstm_1_3b,
 )
 from repro_torch.models.config import ModelConfig
 
@@ -27,12 +27,15 @@ ARCHS: dict[str, ModelConfig] = {
     c.CONFIG.name: c.CONFIG
     for c in (
         recurrentgemma_9b,
+        musicgen_medium,
+        xlstm_1_3b,
         granite_3_8b,
         qwen2_7b,
         qwen3_1_7b,
         nemotron_4_15b,
         moonshot_v1_16b_a3b,
         dbrx_132b,
+        qwen2_vl_7b,
     )
 }
 

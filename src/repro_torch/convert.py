@@ -133,9 +133,14 @@ def model_params_from_reference(tree: dict, cfg, device: str | torch.device = "c
     and the ``stack.remainder`` list become ``layers.<i>.*`` in layer
     order; nested dicts become dotted names; attention weights keep their
     (d, H, hd) / (H, hd, d) layouts, MoE experts their (E, …) ones,
-    Griffin blocks their ``w_x`` … ``b_i`` as they are; the
-    (d, padded_vocab) ``unembed`` is transposed to the port's vocab-major
-    (padded_vocab, d).  Raises ``ValueError`` when a parameter of
+    Griffin blocks their ``w_x`` … ``b_i``, mLSTM cells their ``w_up``,
+    ``w_down``, ``conv``, ``wq``/``wk``/``wv`` (di, H, d), ``w_if``,
+    ``b_if``, ``skip_scale``, ``out_norm.scale`` and sLSTM cells their
+    ``w_in``, ``r_in`` (4, H, d, d), ``b``, ``w_down``, ``out_norm.scale``
+    as they are; the (d, padded_vocab) ``unembed`` is transposed to the
+    port's vocab-major (padded_vocab, d), the codebook heads' (C, d,
+    padded_vocab) to (C, padded_vocab, d).  The embeddings frontend has no
+    ``embed``.  Raises ``ValueError`` when a parameter of
     ``models.param_shapes(cfg)`` is missing, when the tree holds one that
     is not there, or when a shape differs.
     """
@@ -149,10 +154,11 @@ def model_params_from_reference(tree: dict, cfg, device: str | torch.device = "c
     for i, layer in enumerate(layers):
         for k, v in layer.items():
             out[f"layers.{i}.{k}"] = v
-    out["embed"] = tree["embed"]
+    if "embed" in tree:
+        out["embed"] = tree["embed"]
     out["final_norm.scale"] = tree["final_norm"]["scale"]
     if "unembed" in tree:
-        out["unembed"] = np.asarray(tree["unembed"]).T
+        out["unembed"] = np.swapaxes(np.asarray(tree["unembed"]), -1, -2)
     want = param_shapes(cfg)
     missing, extra = sorted(set(want) - set(out)), sorted(set(out) - set(want))
     if missing or extra:
@@ -165,6 +171,28 @@ def model_params_from_reference(tree: dict, cfg, device: str | torch.device = "c
     }
 
 
+_SLSTM_STATE = ("c", "n", "h", "m")  # the reference's tuple order
+_STATE_KEYS = {"rglru": {"h", "conv"}, "mlstm": {"C", "n", "m", "conv"},
+               "slstm": set(_SLSTM_STATE)}
+
+
+def _named_slstm_states(stack: dict, cfg) -> dict:
+    """The reference's per-layer states with each sLSTM tuple (c, n, h, m)
+    made a dict of those names."""
+    period = cfg.block_pattern
+
+    def named(kind, s):
+        if kind == "slstm" and isinstance(s, (tuple, list)):
+            return dict(zip(_SLSTM_STATE, s))
+        return s
+
+    scanned = stack["scanned"]
+    if scanned is not None:
+        scanned = tuple(named(k, s) for k, s in zip(period, scanned))
+    remainder = [named(period[i % len(period)], s) for i, s in enumerate(stack["remainder"])]
+    return {"scanned": scanned, "remainder": remainder}
+
+
 def serve_state_from_reference(state: dict, cfg, device: str | torch.device = "cuda") -> dict:
     """A reference ``init_serve_state``/``decode_step`` state (leaves as
     numpy arrays) → the port's ``{'layers': [per-layer state], 'pos': int}``
@@ -172,15 +200,17 @@ def serve_state_from_reference(state: dict, cfg, device: str | torch.device = "c
 
     The stacked periods are unstacked and the remainder appended, in layer
     order; KV caches {k, v} stay bf16 (exact through fp32), Griffin states
-    keep {h, conv} and their dtypes.  Raises ``ValueError`` when the layer
-    count or a layer's keys do not fit ``cfg``."""
+    keep {h, conv}, mLSTM states {C, n, m, conv}, all with their dtypes;
+    an sLSTM state, the reference's tuple (c, n, h, m), becomes the dict
+    of those names.  Raises ``ValueError`` when the layer count or a
+    layer's keys do not fit ``cfg``."""
     dev = resolve_device(device)
-    layers = _unstack_layers(state["layers"], len(cfg.block_pattern))
+    layers = _unstack_layers(_named_slstm_states(state["layers"], cfg), len(cfg.block_pattern))
     if len(layers) != cfg.n_layers:
         raise ValueError(f"state holds {len(layers)} layers, config has {cfg.n_layers}")
     out = []
     for i, (kind, layer) in enumerate(zip(cfg.layer_kinds, layers)):
-        want = {"h", "conv"} if kind == "rglru" else {"k", "v"}
+        want = _STATE_KEYS.get(kind, {"k", "v"})
         if set(layer) != want:
             raise ValueError(f"layer {i} ({kind}): state keys {sorted(layer)}, want {sorted(want)}")
         out.append({

@@ -24,9 +24,10 @@ response per stdout line:
 
 Both modes run on ``--device`` (default ``cuda``).  In service mode a
 fault plan in ``$REPRO_FAULT_PLAN`` (``repro_torch.faults``, JSON) is
-installed at start-up.  ``--arch`` takes the port's registered
-architectures; the reference's other families, each with its decode
-path, are still to port (ROADMAP.md queue 1, item 6).
+installed at start-up.  ``--arch`` takes any registered architecture;
+as in the reference, a stub modality frontend (qwen2-vl-7b) is swapped
+to tokens, and codebook heads (musicgen-medium) are refused with a
+``ValueError`` (``launch.train.launch_config``).
 """
 from __future__ import annotations
 
@@ -38,14 +39,12 @@ import time
 import torch
 
 from repro_torch._device import resolve_device
-from repro_torch.configs import ARCHS, get_config, smoke_config
+from repro_torch.configs import ARCHS
 from repro_torch.core.engines import StreamingConfig
 from repro_torch.faults import FailurePolicy, install_from_env
+from repro_torch.launch.train import launch_config
 from repro_torch.models import init_params
 from repro_torch.serve import CoresetService, greedy_generate
-
-# Where the decode paths of the families not registered yet are to port.
-_DECODE_ITEM = "ROADMAP.md queue 1, item 6"
 
 
 def _serve_coreset(args, stdin=None, stdout=None) -> None:
@@ -116,7 +115,7 @@ def _serve_coreset(args, stdin=None, stdout=None) -> None:
 def _serve_decode(args) -> torch.Tensor:
     """Greedy decoding of ``--batch`` seeded prompts; returns the tokens."""
     device = resolve_device(args.device)
-    cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    cfg = launch_config(args.arch, args.smoke)
     params = init_params(cfg, torch.Generator(device=device).manual_seed(0))
     prompts = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
                             generator=torch.Generator().manual_seed(1)).to(device)
@@ -134,8 +133,7 @@ def _serve_decode(args) -> torch.Tensor:
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", choices=sorted(ARCHS),
-                    help=f"decode mode: a registered architecture ({_DECODE_ITEM} "
-                         "ports the others)")
+                    help="decode mode: a registered architecture")
     ap.add_argument("--smoke", action="store_true",
                     help="reduced same-family config (CPU-runnable)")
     ap.add_argument("--batch", type=int, default=4)

@@ -8,10 +8,18 @@ Port of ``repro.launch.train`` (single device):
         --smoke --device cpu --steps 12
 
 ``--smoke`` takes the reduced same-family config (``configs.smoke_config``);
-without it the published config runs.  Wired in as in the reference: CRAIG
-per-epoch coreset refresh (``--craig-fraction``, ``--select-every``),
-micro-batched gradient accumulation, checkpoint/restart (``--ckpt``) and
-SIGTERM → emergency save.  The trainer runs on ``--device`` (default
+without it the published config runs.  As in the reference, an
+architecture with a stub modality frontend (qwen2-vl-7b) trains its
+backbone on the synthetic token stream with the token frontend.  A
+config with codebook heads (musicgen-medium) raises ``ValueError``: the
+stream yields one label a token, the heads need one a codebook (the
+reference's launcher fails there too); drive it through the model's
+entry points (``models``, ``train.make_train_step``).
+
+Wired in as in the reference: CRAIG per-epoch coreset refresh
+(``--craig-fraction``, ``--select-every``), micro-batched gradient
+accumulation, checkpoint/restart (``--ckpt``) and SIGTERM → emergency
+save.  The trainer runs on ``--device`` (default
 ``cuda``; ``cpu`` on request); on a card the refresh's proxies go through
 the ``ce_proxy`` kernel.  The reference's multi-host training mesh (model
 parallelism over several cards) and ``--dry-run`` lowering are not ported
@@ -21,6 +29,7 @@ distributed *selection* is (``launch.tree``).
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 import numpy as np
@@ -54,12 +63,29 @@ def parse_args(argv=None):
     return ap.parse_args(argv)
 
 
+def launch_config(arch: str, smoke: bool):
+    """The config the token-stream launchers run: a stub modality frontend
+    swapped to tokens (the backbone is unchanged, the modality stub is
+    data-side), as the reference's launchers do; codebook heads refused."""
+    cfg = smoke_config(arch) if smoke else get_config(arch)
+    if cfg.n_codebooks > 1:
+        raise ValueError(
+            f"{cfg.name}: {cfg.n_codebooks} codebook heads need (B, T, {cfg.n_codebooks}) "
+            "labels and feed back (B, n_codebooks) tokens, but the token-stream launchers "
+            "yield (B, T) labels and (B, 1) tokens (the reference's launchers fail here "
+            "too: a reshape TypeError in its codebook loss, an einsum ValueError in its "
+            "greedy_generate); drive it through the model's entry points instead")
+    if cfg.frontend != "tokens":
+        cfg = dataclasses.replace(cfg, frontend="tokens")
+    return cfg
+
+
 def main(argv=None) -> dict:
     """Run training; returns the step losses and the number of CRAIG
     selections run."""
     args = parse_args(argv)
     device = resolve_device(args.device)
-    cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    cfg = launch_config(args.arch, args.smoke)
     print(f"arch={cfg.name} ({'smoke' if args.smoke else 'full'}) "
           f"params≈{cfg.param_count()/1e6:.1f}M layers={cfg.n_layers} device={device}")
 

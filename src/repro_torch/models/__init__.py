@@ -1,6 +1,7 @@
-"""Decoder-only LM (port of ``repro.models``; dense, MoE and Griffin hybrid
-stacks; training, proxies, prefill and decode)."""
-from repro_torch.models.config import ModelConfig, require_ported
+"""Decoder-only LM (port of ``repro.models``; dense, MoE, Griffin hybrid and
+xLSTM stacks, the token and embeddings frontends, one or several output
+heads; training, proxies, prefill and decode)."""
+from repro_torch.models.config import ModelConfig, validate_config
 from repro_torch.models.model import (
     COMPUTE_DTYPE,
     decode_step,
@@ -17,7 +18,7 @@ from repro_torch.models.model import (
 
 __all__ = [
     "ModelConfig",
-    "require_ported",
+    "validate_config",
     "COMPUTE_DTYPE",
     "init_params",
     "param_shapes",

@@ -1,4 +1,4 @@
-"""Causal self-attention: GQA/MQA/MHA with RoPE, qk-norm, QKV bias, sliding
+"""Causal self-attention: GQA/MQA/MHA with RoPE or M-RoPE, qk-norm, QKV bias, sliding
 window, and KV-cache decoding.
 
 Port of ``repro.models.attention``: the projections into (d, H, hd)
@@ -18,7 +18,9 @@ slots for a windowed layer, position p in slot p mod S.
 (the reference's donated buffers) and attends grouped queries
 (B, KV, G, hd) to the cache without repeating it.  These are plain
 tensor code in the reference too (no Pallas kernel), so they are plain
-torch here.  M-RoPE is not ported (ROADMAP.md queue 1, item 6).
+torch here.  With ``mrope_sections`` (Qwen2-VL) q and k rotate by
+M-RoPE over (B, 3, T) positions; a decode step advances the three
+streams together.
 
 Parameters of one layer's mixer: ``wq`` (d, H, hd), ``wk``/``wv``
 (d, KV, hd), ``wo`` (H, hd, d), optional ``bq``/``bk``/``bv`` and
@@ -31,7 +33,7 @@ import math
 
 import torch
 
-from repro_torch.models.layers import apply_rope, dense_init, rms_norm
+from repro_torch.models.layers import apply_mrope, apply_rope, dense_init, rms_norm
 
 __all__ = ["AttentionConfig", "init_attention", "attention", "init_kv_cache",
            "decode_attention"]
@@ -48,6 +50,7 @@ class AttentionConfig:
     qkv_bias: bool = False
     qk_norm: bool = False
     rope_theta: float = 10000.0
+    mrope_sections: tuple[int, int, int] | None = None  # Qwen2-VL
     window: int | None = None  # sliding-window size (None = global)
     blockwise_threshold: int = 8192  # blockwise above this sequence length
     chunk_q: int = 1024
@@ -79,7 +82,8 @@ def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def _project_qkv(p: dict, cfg: AttentionConfig, x, positions):
-    """x (B, T, D) → q (B, T, H, hd), k/v (B, T, KV, hd), RoPE applied."""
+    """x (B, T, D) → q (B, T, H, hd), k/v (B, T, KV, hd), RoPE (or
+    M-RoPE) applied."""
     dtype = x.dtype
     q, k, v = _proj(x, p["wq"]), _proj(x, p["wk"]), _proj(x, p["wv"])
     if cfg.qkv_bias:
@@ -89,8 +93,12 @@ def _project_qkv(p: dict, cfg: AttentionConfig, x, positions):
     if cfg.qk_norm:
         q = rms_norm(p["q_norm.scale"], q)
         k = rms_norm(p["k_norm.scale"], k)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    if cfg.mrope_sections is not None:
+        q = apply_mrope(q, positions, cfg.mrope_sections, cfg.rope_theta)
+        k = apply_mrope(k, positions, cfg.mrope_sections, cfg.rope_theta)
+    else:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
 
 
@@ -198,7 +206,9 @@ def decode_attention(p: dict, cfg: AttentionConfig, x: torch.Tensor, cache: dict
     The new k/v go into slot ``pos mod S`` of the cache in place; the
     returned cache holds the same tensors."""
     B = x.shape[0]
-    positions = torch.full((B, 1), pos, dtype=torch.long, device=x.device)
+    # text-only decode: all three M-RoPE streams advance together
+    shape = (B, 1) if cfg.mrope_sections is None else (B, 3, 1)
+    positions = torch.full(shape, pos, dtype=torch.long, device=x.device)
     q, k_new, v_new = _project_qkv(p, cfg, x, positions)
     size = cache["k"].shape[1]
     slot = pos % size

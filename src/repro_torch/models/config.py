@@ -2,23 +2,22 @@
 
 The port's own copy of the reference's ``ModelConfig``, field for field,
 with ``padded_vocab``, ``layer_kinds`` and ``param_count``.  The port runs
-the dense, MoE and hybrid (Griffin: 'rglru' and sliding-window
-'local_attn' layers) families; :func:`require_ported` raises
-``NotImplementedError`` for anything else, naming the ROADMAP item that
-ports it.
+every family of the reference: dense, MoE, hybrid (Griffin: 'rglru' and
+sliding-window 'local_attn' layers), ssm (xLSTM: 'mlstm' and 'slstm'),
+vlm (the embeddings frontend with M-RoPE) and audio (the embeddings
+frontend with per-codebook heads).  :func:`validate_config` raises
+``ValueError`` for what the reference itself rejects: an unknown remat
+policy or layer kind.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Literal
 
-__all__ = ["ModelConfig", "require_ported"]
+__all__ = ["ModelConfig", "validate_config"]
 
-# The ROADMAP item that ports the families, layer kinds and options the
-# port lacks, one sub-item each.
-_FAMILY_ITEM = "ROADMAP.md queue 1, item 6"
-_PORTED_FAMILIES = ("dense", "moe", "hybrid")
-_PORTED_KINDS = ("attn", "local_attn", "rglru")
+REMAT_POLICIES = ("nothing", "dots", "full")
+LAYER_KINDS = ("attn", "local_attn", "rglru", "mlstm", "slstm")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -147,29 +146,13 @@ class ModelConfig:
         return self.param_count() - inactive
 
 
-def require_ported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` unless the port can run ``cfg``: the
-    dense, MoE or hybrid family, 'attn', 'local_attn' and 'rglru' layers,
-    remat 'nothing' or 'full', token frontend, one output head, no
-    M-RoPE."""
-    if cfg.remat_policy not in ("nothing", "full"):
-        raise NotImplementedError(
-            f"{cfg.name}: remat_policy {cfg.remat_policy!r} is not ported to "
-            f"repro_torch ({_FAMILY_ITEM}.1); use 'nothing' or 'full'"
-        )
-    if cfg.family not in _PORTED_FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not ported to repro_torch "
-            f"({_FAMILY_ITEM}); only {_PORTED_FAMILIES} run"
-        )
-    bad = sorted(set(cfg.layer_kinds) - set(_PORTED_KINDS))
+def validate_config(cfg: ModelConfig) -> None:
+    """Raise ``ValueError`` where the reference rejects ``cfg``: a remat
+    policy other than 'nothing', 'dots' or 'full'
+    (``repro.models.blocks._remat_policy``), or a layer kind it has no
+    mixer for (``repro.models.blocks._init_layer``)."""
+    if cfg.remat_policy not in REMAT_POLICIES:
+        raise ValueError(f"{cfg.name}: unknown remat policy {cfg.remat_policy!r}")
+    bad = sorted(set(cfg.layer_kinds) - set(LAYER_KINDS))
     if bad:
-        raise NotImplementedError(
-            f"{cfg.name}: layer kinds {bad} are not ported to repro_torch "
-            f"({_FAMILY_ITEM}.2, mLSTM and sLSTM); only {_PORTED_KINDS} run"
-        )
-    if cfg.frontend != "tokens" or cfg.n_codebooks != 1 or cfg.mrope_sections:
-        raise NotImplementedError(
-            f"{cfg.name}: the embeddings frontend, codebook heads and M-RoPE "
-            f"are not ported to repro_torch ({_FAMILY_ITEM}.3 and 6.4)"
-        )
+        raise ValueError(f"{cfg.name}: unknown layer kinds {bad}")

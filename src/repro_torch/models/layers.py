@@ -2,7 +2,7 @@
 
 Port of ``repro.models.layers`` (``rms_norm``, ``layer_norm``,
 ``rope_frequencies``, ``apply_rope`` with the half-split ``_rope_rotate``,
-``activation_fn``, ``dense_init``).  Functions take plain tensors; a norm's
+``apply_mrope``, ``activation_fn``, ``dense_init``).  Functions take plain tensors; a norm's
 parameter is its (d,) scale tensor.  dtype rules are the reference's:
 norms reduce in fp32 and normalise in the input's dtype, RoPE rotates in
 fp32 and casts back.
@@ -20,6 +20,7 @@ __all__ = [
     "layer_norm",
     "rope_frequencies",
     "apply_rope",
+    "apply_mrope",
     "activation_fn",
     "dense_init",
 ]
@@ -79,6 +80,26 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10000.0)
     return _rope_rotate(x, sin, cos)
 
 
+def apply_mrope(x: torch.Tensor, positions: torch.Tensor, sections: tuple[int, int, int],
+                theta: float = 10000.0) -> torch.Tensor:
+    """Multimodal RoPE (Qwen2-VL, arXiv:2409.12191).  x (B, T, H, d_head);
+    positions (B, 3, T) integer (t, h, w) ids; ``sections`` the frequency
+    slots of each stream, summing to d_head/2.  Slot s rotates by the
+    position of its stream, picked by index (the reference's one-hot
+    einsum selects the same fp32 value)."""
+    d_head = x.shape[-1]
+    assert sum(sections) == d_head // 2, (sections, d_head)
+    inv = rope_frequencies(d_head, theta, device=x.device)
+    pos = positions.float()
+    B, _, T = pos.shape
+    pos_sel = torch.cat([pos[:, s, :, None].expand(B, T, n) for s, n in enumerate(sections)],
+                        dim=-1)  # (B, T, d/2)
+    ang = pos_sel * inv
+    sin = torch.sin(ang)[:, :, None, :]
+    cos = torch.cos(ang)[:, :, None, :]
+    return _rope_rotate(x, sin, cos)
+
+
 def _relu2(x: torch.Tensor) -> torch.Tensor:
     return torch.square(F.relu(x))
 
@@ -100,7 +121,15 @@ def _gelu(x: torch.Tensor) -> torch.Tensor:
     return x * (0.5 * (1.0 + torch.tanh(c * (x + k * x**3))))
 
 
-_ACTIVATIONS = {"gelu": _gelu, "silu": F.silu, "relu2": _relu2, "relu": F.relu}
+def _silu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.silu`` as XLA lowers it: x·(1 / (1 + exp(−x))), op by op
+    in ``x.dtype``, as the reference rounds (``F.silu`` evaluates in fp32
+    and rounds once: in bf16 about one value in four of a gated FFN then
+    differs by an ulp, and the differences grow over the layers)."""
+    return x * (1.0 / (1.0 + torch.exp(-x)))
+
+
+_ACTIVATIONS = {"gelu": _gelu, "silu": _silu, "relu2": _relu2, "relu": F.relu}
 
 
 def activation_fn(name: str):

@@ -15,28 +15,39 @@ Port of ``repro.models.model``:
 * ``proxy_features`` (chunked einsum path) and ``proxy_features_fused``
   (the ``ce_proxy`` kernel) — pooled unembed-input gradient proxies (B, D);
 * ``init_serve_state(cfg, batch, max_len, device)`` — per-layer decode
-  states (bf16 KV caches, Griffin states) and the position ``pos``, a
-  host integer, so the ring slot of a windowed cache needs no device
-  read;
+  states (bf16 KV caches, Griffin and xLSTM states) and the position
+  ``pos``, a host integer, so the ring slot of a windowed cache needs no
+  device read;
 * ``prefill(params, cfg, batch)`` — hidden states and the last token's
-  fp32 logits (B, padded_vocab) from a bf16 product.  It does not fill
-  the caches, nor does the reference's: generation teacher-forces the
-  prompt through ``decode_step``;
-* ``decode_step(params, cfg, state, batch)`` — one token (B, 1) → fp32
-  logits (B, padded_vocab) and the state at ``pos + 1``.  KV caches are
-  written in place; the returned state holds the same tensors.
+  fp32 logits (B, padded_vocab), or (B, n_codebooks, padded_vocab), from
+  a bf16 product.  It does not fill the caches, nor does the reference's:
+  generation teacher-forces the prompt through ``decode_step``;
+* ``decode_step(params, cfg, state, batch)`` — one step, ``{'tokens': (B,
+  1)}`` or ``{'embeddings': (B, 1, D)}`` → fp32 logits as ``prefill``'s
+  and the state at ``pos + 1``.  KV caches are written in place; the
+  returned state holds the same tensors.
 
-Parameters are one flat dict of fp32 tensors: ``embed`` (padded_vocab, d),
+Parameters are one flat dict of fp32 tensors: ``embed`` (padded_vocab, d)
+with the token frontend (none with the embeddings frontend),
 ``layers.<i>.*`` (see ``blocks.py``), ``final_norm.scale`` (d,) and
-``unembed`` (padded_vocab, d).  The unembedding is stored vocab-major —
-the transpose of the reference's (d, padded_vocab) — so a vocab block is
-one contiguous slab for the kernel; with tied embeddings it is ``embed``
-itself.  Casts to ``COMPUTE_DTYPE`` (bf16) happen where the reference
-makes them: the embedded input, each weight at its matrix product, and
-the logits' matrix products.
+``unembed`` (padded_vocab, d), or (n_codebooks, padded_vocab, d) with
+codebook heads.  The unembedding is stored vocab-major — the transpose of
+the reference's (d, padded_vocab) — so a vocab block is one contiguous
+slab for the kernel, and each codebook's head a slab of its own; with
+tied embeddings it is ``embed`` itself.  Casts to ``COMPUTE_DTYPE``
+(bf16) happen where the reference makes them: the embedded input, each
+weight at its matrix product, and the logits' matrix products.
 
-Batch dict: ``tokens`` (B, T) and ``labels`` (B, T) integer tensors,
-optional ``positions`` (B, T) and ``weights`` (B,) fp32.
+Batch dict (the reference's ``train_batch_struct`` layout):
+  tokens      (B, T) integer            [frontend 'tokens']
+  embeddings  (B, T, D), cast to bf16   [frontend 'embeddings': the
+              modality frontend is a stub, these are its outputs]
+  labels      (B, T), or (B, T, n_codebooks) with codebook heads
+  positions   optional (B, T), or (B, 3, T) under M-RoPE (default: 0…T−1,
+              the three streams equal)
+  weights     optional (B,) fp32 — CRAIG γ (default 1)
+With codebook heads the per-token CE, both proxies and the logits are
+taken per codebook; the loss and the proxies average over codebooks.
 """
 from __future__ import annotations
 
@@ -46,13 +57,14 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch._device import resolve_device
 from repro_torch.models.blocks import (init_decode_state, init_stack, norm_fn, stack_decode,
                                        stack_forward)
-from repro_torch.models.config import ModelConfig, require_ported
+from repro_torch.models.config import ModelConfig, validate_config
 from repro_torch.models.layers import dense_init
 
 __all__ = [
     "COMPUTE_DTYPE",
     "init_params",
     "param_shapes",
+    "stored_param_count",
     "unembed_matrix",
     "forward",
     "loss_fn",
@@ -78,34 +90,86 @@ def param_shapes(cfg: ModelConfig) -> dict[str, tuple[int, ...]]:
     return {k: tuple(v.shape) for k, v in _init(cfg, None, torch.device("meta")).items()}
 
 
+def stored_param_count(cfg: ModelConfig) -> int:
+    """The element count of the tables ``init_params`` allocates, from the
+    config alone.  ``param_count()`` (the reference's) counts every
+    vocabulary table at the real vocabulary, a tied unembedding too; the
+    port stores each at ``padded_vocab`` rows, a tied one once.  It also
+    leaves out each RG-LRU layer's Λ and gate biases and each xLSTM cell's
+    convolution, gate biases, skip and output-norm scales, and counts a
+    second pre-norm an xLSTM layer lacks."""
+    d, di = cfg.d_model, cfg.n_heads * cfg.head_dim
+    tokens = cfg.frontend == "tokens"
+    counted = tokens + cfg.n_codebooks
+    stored = tokens + (0 if tokens and cfg.tie_embeddings else cfg.n_codebooks)
+    extra = {"rglru": 3 * (cfg.d_rnn or d),
+             "mlstm": cfg.conv_width * di + 2 * cfg.n_heads + 2 * di - d,
+             "slstm": 5 * di - d}
+    return (cfg.param_count() + (stored * cfg.padded_vocab - counted * cfg.vocab_size) * d
+            + sum(extra.get(k, 0) for k in cfg.layer_kinds))
+
+
 def _init(cfg: ModelConfig, generator, device) -> dict:
-    require_ported(cfg)
+    validate_config(cfg)
     d, vp = cfg.d_model, cfg.padded_vocab
     p = init_stack(cfg, generator, device)
-    p["embed"] = dense_init((vp, d), generator, device, fan=d)
+    if cfg.frontend == "tokens":
+        p["embed"] = dense_init((vp, d), generator, device, fan=d)
     p["final_norm.scale"] = torch.ones((d,), device=device)
-    if not cfg.tie_embeddings:
+    if cfg.n_codebooks > 1:
+        p["unembed"] = torch.stack([dense_init((vp, d), generator, device, fan=d)
+                                    for _ in range(cfg.n_codebooks)])
+    elif not (cfg.tie_embeddings and cfg.frontend == "tokens"):
         p["unembed"] = dense_init((vp, d), generator, device, fan=d)
     return p
 
 
 def unembed_matrix(params: dict) -> torch.Tensor:
-    """The (padded_vocab, d) unembedding (``embed`` when tied)."""
+    """The (padded_vocab, d) unembedding (``embed`` when tied), or the
+    (n_codebooks, padded_vocab, d) codebook heads."""
     return params["unembed"] if "unembed" in params else params["embed"]
 
 
-def _positions(batch: dict) -> torch.Tensor:
+def _embed_input(params: dict, cfg: ModelConfig, batch: dict) -> torch.Tensor:
+    if cfg.frontend == "tokens":
+        return params["embed"][batch["tokens"].long()].to(COMPUTE_DTYPE)
+    return batch["embeddings"].to(COMPUTE_DTYPE)  # the stub frontend's outputs
+
+
+def _positions(cfg: ModelConfig, batch: dict) -> torch.Tensor:
     if "positions" in batch:
         return batch["positions"]
-    B, T = batch["tokens"].shape
-    return torch.arange(T, device=batch["tokens"].device).expand(B, T)
+    ref = batch["tokens"] if cfg.frontend == "tokens" else batch["embeddings"]
+    B, T = ref.shape[:2]
+    pos = torch.arange(T, device=ref.device).expand(B, T)
+    if cfg.mrope_sections is not None:
+        pos = pos[:, None].expand(B, 3, T)
+    return pos
+
+
+def _codebooks(cfg: ModelConfig, unembed: torch.Tensor, labels: torch.Tensor):
+    """(head (V, D), labels (B, T)) per output head."""
+    if cfg.n_codebooks > 1:
+        return [(unembed[c], labels[..., c]) for c in range(cfg.n_codebooks)]
+    return [(unembed, labels)]
+
+
+def _codebook_mean(terms: list) -> torch.Tensor:
+    """The reference's running sum over codebooks, over their count (one
+    head: the term itself)."""
+    if len(terms) == 1:
+        return terms[0]
+    total = terms[0]
+    for t in terms[1:]:
+        total = total + t
+    return total / len(terms)
 
 
 def forward(params: dict, cfg: ModelConfig, batch: dict):
     """Returns (hidden (B, T, D) post-final-norm in COMPUTE_DTYPE, aux)."""
-    require_ported(cfg)
-    x = params["embed"][batch["tokens"].long()].to(COMPUTE_DTYPE)
-    x, aux = stack_forward(params, cfg, x, _positions(batch))
+    validate_config(cfg)
+    x = _embed_input(params, cfg, batch)
+    x, aux = stack_forward(params, cfg, x, _positions(cfg, batch))
     x = norm_fn(cfg)(params["final_norm.scale"], x, cfg.norm_eps)
     return x, aux
 
@@ -147,10 +211,9 @@ def loss_fn(params: dict, cfg: ModelConfig, batch: dict):
     w = batch.get("weights")
     if w is None:
         w = torch.ones((B,), device=hidden.device)
-    per_tok = _chunked_ce(
-        hidden, unembed_matrix(params), batch["labels"], cfg.logit_chunk,
-        valid_v=cfg.vocab_size,
-    )
+    per_tok = _codebook_mean([
+        _chunked_ce(hidden, head, y, cfg.logit_chunk, valid_v=cfg.vocab_size)
+        for head, y in _codebooks(cfg, unembed_matrix(params), batch["labels"])])
     per_example = torch.mean(per_tok, dim=-1)
     denom = torch.clamp(torch.sum(w), min=1e-6)
     loss = torch.sum(per_example * w) / denom
@@ -161,14 +224,15 @@ def loss_fn(params: dict, cfg: ModelConfig, batch: dict):
 @torch.no_grad()
 def proxy_features(params: dict, cfg: ModelConfig, batch: dict) -> torch.Tensor:
     """Pooled unembed-input gradient proxies (B, D) fp32 through the
-    chunked einsum path (``core.proxy.lm_unembed_input_proxy``)."""
+    chunked einsum path (``core.proxy.lm_unembed_input_proxy``), averaged
+    over codebooks."""
     from repro_torch.core.proxy import lm_unembed_input_proxy
 
     hidden, _ = forward(params, cfg, batch)
-    return lm_unembed_input_proxy(
-        hidden, unembed_matrix(params), batch["labels"], chunk=cfg.logit_chunk,
-        valid_v=cfg.vocab_size, compute_dtype=COMPUTE_DTYPE,
-    )
+    return _codebook_mean([
+        lm_unembed_input_proxy(hidden, head, y, chunk=cfg.logit_chunk, valid_v=cfg.vocab_size,
+                               compute_dtype=COMPUTE_DTYPE)
+        for head, y in _codebooks(cfg, unembed_matrix(params), batch["labels"])])
 
 
 @torch.no_grad()
@@ -185,6 +249,7 @@ def proxy_features_fused(
     Same contract as :func:`proxy_features`; all sequences share one
     token stream (per-token gradients are independent), so (B, T)
     flattens to B·T tokens for the kernel and pools back per sequence.
+    One launch a codebook, each on its head's contiguous (V, D) slab.
     ``impl`` is the kernel dispatch ('auto' → the CUDA kernel for tensors
     on a card, the plain twin on the CPU).
     """
@@ -192,12 +257,15 @@ def proxy_features_fused(
 
     hidden, _ = forward(params, cfg, batch)
     B, T, D = hidden.shape
-    g = ops.ce_proxy(
-        hidden.reshape(B * T, D), unembed_matrix(params),
-        batch["labels"].reshape(B * T), valid_v=cfg.vocab_size,
-        compute_dtype=compute_dtype, impl=impl,
-    )
-    return torch.mean(g.reshape(B, T, D), dim=1)
+    flat = hidden.reshape(B * T, D)
+
+    def one(head, y):
+        g = ops.ce_proxy(flat, head, y.reshape(B * T), valid_v=cfg.vocab_size,
+                         compute_dtype=compute_dtype, impl=impl)
+        return torch.mean(g.reshape(B, T, D), dim=1)
+
+    return _codebook_mean([one(head, y) for head, y in
+                           _codebooks(cfg, unembed_matrix(params), batch["labels"])])
 
 
 # ---------------------------------------------------------------------------
@@ -213,20 +281,27 @@ def init_serve_state(cfg: ModelConfig, batch: int, max_len: int,
 
 
 def _logits(params: dict, last: torch.Tensor) -> torch.Tensor:
-    """(B, D) → fp32 logits (B, padded_vocab) from a COMPUTE_DTYPE product."""
-    return (last.to(COMPUTE_DTYPE) @ unembed_matrix(params).to(COMPUTE_DTYPE).T).float()
+    """(B, D) → fp32 logits (B, padded_vocab), or (B, C, padded_vocab) with
+    codebook heads, from a COMPUTE_DTYPE product."""
+    w = unembed_matrix(params).to(COMPUTE_DTYPE)
+    h = last.to(COMPUTE_DTYPE)
+    if w.dim() == 3:
+        return torch.einsum("bd,cvd->bcv", h, w).float()
+    return (h @ w.T).float()
 
 
 def prefill(params: dict, cfg: ModelConfig, batch: dict):
-    """Forward over the prompt → (hidden (B, T, D), last-token logits (B, V))."""
+    """Forward over the prompt → (hidden (B, T, D), last-token logits (B, V)
+    or (B, C, V))."""
     hidden, _ = forward(params, cfg, batch)
     return hidden, _logits(params, hidden[:, -1])
 
 
 def decode_step(params: dict, cfg: ModelConfig, state: dict, batch: dict):
-    """One token ``batch['tokens']`` (B, 1) at ``state['pos']`` →
-    (logits (B, padded_vocab) fp32, state at pos + 1)."""
-    x = params["embed"][batch["tokens"].long()].to(COMPUTE_DTYPE)
+    """One step, ``batch['tokens']`` (B, 1) or ``batch['embeddings']`` (B,
+    1, D), at ``state['pos']`` → (fp32 logits (B, padded_vocab) or (B, C,
+    padded_vocab), state at pos + 1)."""
+    x = _embed_input(params, cfg, batch)
     pos = state["pos"]
     x, layers = stack_decode(params, cfg, state["layers"], x, pos)
     x = norm_fn(cfg)(params["final_norm.scale"], x, cfg.norm_eps)

@@ -8,6 +8,12 @@ Port of ``repro.train.train_step``:
 * ``make_select_step`` — the CRAIG selection forward: pooled proxy
   features (B, D) for a pool batch.
 
+Batches are dicts in the reference's ``train_batch_struct`` layout
+(``models/model.py``): ``tokens`` or ``embeddings`` (B, T, D),
+``labels`` (B, T) or (B, T, n_codebooks), optional ``positions`` (B, T)
+or (B, 3, T) and ``weights`` (B,); micro-batches split every entry along
+dim 0.
+
 Gradient compression on a data-parallel axis (``grad_transform``) comes
 with model parallelism and multi-GPU meshes (ROADMAP.md queue 1, item 5).
 """
@@ -95,7 +101,7 @@ def make_select_step(
     def select_step(params, batch):
         impl = proxy_impl
         if impl == "auto":
-            impl = "cuda" if params["embed"].device.type == "cuda" else "einsum"
+            impl = "cuda" if params["final_norm.scale"].device.type == "cuda" else "einsum"
         if impl == "einsum":
             return proxy_features(params, cfg, batch)
         return proxy_features_fused(params, cfg, batch, impl=impl, **kw)

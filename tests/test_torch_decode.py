@@ -6,7 +6,8 @@ Same numpy inputs into both; reference weights carried across by
 states by ``convert.serve_state_from_reference``.  Reference calls run under
 ``jax.jit`` and ``jax.numpy_rank_promotion("allow")`` (the reference's
 QKV-bias add, ROADMAP.md queue 3).  The whole-model ones are compiled
-with ``xla_allow_excess_precision=False`` (``strict_jit``): by default
+with ``xla_allow_excess_precision=False``
+(``torch_lm_checks.strict_jit``): by default
 XLA keeps fp32 inside a fusion where the reference's ops, run one by
 one, and the port's round to bf16 after each op.  That fusion alone
 moves the Griffin smoke model's bf16 prefill logits by 3.4% of their
@@ -40,9 +41,9 @@ from repro_torch.configs import smoke_config
 from repro_torch.models import attention as tattn
 from repro_torch.models import model as tmodel
 from repro_torch.models.config import ModelConfig
+from torch_lm_checks import strict_jit
 
 TOL = dict(rtol=1e-4, atol=1e-5)
-STRICT = {"xla_allow_excess_precision": False}
 CPU = torch.device("cpu")
 B = 2
 
@@ -161,21 +162,6 @@ def test_blockwise_window_equals_dense_window_in_the_port():
 # ---------------------------------------------------------------------------
 
 
-class strict_jit:
-    """``jax.jit(fn)``, compiled once per argument shapes without excess
-    precision (each bf16 op rounds, as it does run op by op)."""
-
-    def __init__(self, fn):
-        self.fn, self.compiled = jax.jit(fn), {}
-
-    def __call__(self, *args):
-        leaves, tree = jax.tree.flatten(args)
-        key = (tree, tuple((np.shape(a), str(a.dtype)) for a in leaves))
-        if key not in self.compiled:
-            self.compiled[key] = self.fn.lower(*args).compile(compiler_options=STRICT)
-        return self.compiled[key](*args)
-
-
 @functools.lru_cache(maxsize=None)
 def _model(name):
     """(reference config, port config, reference params, port params,
@@ -273,7 +259,98 @@ def test_forward_against_decode_in_the_port(name):
 
 
 def test_prefill_and_decode_refuse_unported_kinds():
+    """xLSTM layers now build their decode states ({C, n, m, conv} for
+    'mlstm', {c, n, h, m} for 'slstm', as the reference's); a layer kind
+    the reference has no mixer for is still refused."""
     cfg = ModelConfig(name="x", family="ssm", n_layers=2, d_model=16, n_heads=2,
                       n_kv_heads=2, d_ff=0, vocab_size=32, block_pattern=("mlstm", "slstm"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmodel.init_serve_state(cfg, 1, 4, CPU)
+    state = tmodel.init_serve_state(cfg, 1, 4, CPU)
+    assert sorted(state["layers"][0]) == ["C", "conv", "m", "n"]
+    assert sorted(state["layers"][1]) == ["c", "h", "m", "n"]
+    assert tuple(state["layers"][0]["C"].shape) == (1, 2, 8, 8) and state["pos"] == 0
+    with pytest.raises(ValueError, match="layer kinds"):
+        tmodel.init_serve_state(dataclasses.replace(cfg, block_pattern=("mamba",)), 1, 4, CPU)
+
+
+# Full-depth stacks at smoke width: recurrentgemma-9b's whole 38-layer
+# pattern, a 40-layer dense stack, xlstm-1.3b's 48 layers (six (7 ×
+# mlstm, slstm) periods) and musicgen-medium's 48 layers with its four
+# codebook heads.  Each: (arch, overrides, steps, the bound the card holds
+# it to in chip_smoke.py phase 12, step 0's bound, the reference's gate at
+# its own depth and the comparison that lies past it here or None).  The
+# card's bounds: 4e-2·√(38/5) past the reference's 5-layer recurrent gate,
+# the reference's 2e-2 for a dense stack, and for xlstm-1.3b and
+# musicgen-medium 1.25 × the card's reading (chip_smoke.SERVE_EMB_CELLS).
+# Step 0 is the reference's to 2e-8 for the token-input dense and Griffin
+# stacks, and to fp32 rounding (1e-5) for the xLSTM stack, whose gates run
+# fp32 exp and log, and for the codebook stack (1.4e-7 read).
+XLSTM_CARD_BOUND = 1.25 * 0.2099  # chip_smoke.py: SERVE_MARGIN × the H100's reading
+MUSICGEN_CARD_BOUND = 1.25 * 2.099e-2
+DEPTH = {"griffin": ("recurrentgemma-9b", {"n_layers": 38, "window": 4}, 12,
+                     4e-2 * (38 / 5) ** 0.5, 2e-8,
+                     (4e-2, "reference forward against its decode")),
+         "dense": ("qwen3-1.7b", {"n_layers": 40}, 12, 2e-2, 2e-8, None),
+         "xlstm": ("xlstm-1.3b", {"n_layers": 48}, 24, XLSTM_CARD_BOUND, 1e-5,
+                   (4e-2, "reference forward against its decode")),
+         "codebooks": ("musicgen-medium", {"n_layers": 48}, 24, MUSICGEN_CARD_BOUND, 1e-5,
+                       (2e-2, "port against reference decode"))}
+
+
+@pytest.mark.parametrize("name", sorted(DEPTH))
+def test_decode_at_depth_is_the_references(name):
+    """The port's decode held to the strictly compiled reference's decode
+    at full depth, not to the port's forward.
+
+    The first step's logits are the reference's to rounding: every layer
+    computes what the reference's does.  Later steps part at the first
+    bf16 rounding that the CPU libraries' summation orders flip (the
+    dense stack: one of layer 10's 64 v-projection values at step 6); from
+    there the two decodes differ by about as much as either package's own
+    forward differs from its decode.  So the growth with depth is the
+    reference's: both packages' decodes, and each package's forward
+    against its decode, lie within the bound the card holds at this depth;
+    the reference's own Griffin and xLSTM decodes lie past their shallow
+    gates (5 and 4 layers), and at musicgen-medium's depth two faithful
+    decodes, the port's and the reference's, part by more than the
+    reference's 2-layer gate (on the CPU each package's forward equals its
+    own decode there)."""
+    arch, kw, T, bound, step0, past = DEPTH[name]
+    jcfg = dataclasses.replace(jregistry.smoke_config(arch), **kw)
+    cfg = dataclasses.replace(smoke_config(arch), **kw)
+    jp = jmodel.init_params(jax.random.PRNGKey(0), jcfg)
+    tp = convert.model_params_from_reference(jax.tree.map(np.asarray, jp), cfg, device="cpu")
+    step = strict_jit(lambda p, s, b: jmodel.decode_step(p, jcfg, s, b))
+    key = "tokens" if cfg.frontend == "tokens" else "embeddings"
+    if key == "tokens":
+        x = _tokens(cfg, T, 1)
+    else:
+        x = np.random.default_rng(1).normal(size=(B, T, cfg.d_model)).astype(np.float32)
+    js = jmodel.init_serve_state(jcfg, B, T)
+    ts = tmodel.init_serve_state(cfg, B, T, CPU)
+    jo, to = [], []
+    with torch.inference_mode():
+        for t in range(T):
+            jl, js = step(jp, js, {key: jnp.asarray(x[:, t:t + 1])})
+            tl, ts = tmodel.decode_step(tp, cfg, ts, {key: torch.as_tensor(x[:, t:t + 1])})
+            jo.append(np.asarray(jl))
+            to.append(_np(tl))
+        hidden, _ = tmodel.forward(tp, cfg, {key: torch.as_tensor(x)})
+        w = tmodel.unembed_matrix(tp).to(tmodel.COMPUTE_DTYPE)  # (V, D) or (C, V, D)
+        tfwd = _np(torch.einsum("btd,cvd->btcv", hidden, w) if w.dim() == 3 else hidden @ w.T)
+    jh, _ = strict_jit(lambda p, b: jmodel.forward(p, jcfg, b))(jp, {key: jnp.asarray(x)})
+    un = jp["unembed"].astype(jh.dtype)  # (D, V) or (C, D, V)
+    jfwd = np.asarray((jnp.einsum("btd,cdv->btcv", jh, un) if un.ndim == 3 else jh @ un)
+                      .astype(jnp.float32))
+    jo, to = np.stack(jo, 1), np.stack(to, 1)
+
+    def rel(a, b):
+        return float(np.abs(a - b).max() / np.abs(b).max())
+
+    assert rel(to[:, 0], jo[:, 0]) <= step0, f"{name}: step 0 {rel(to[:, 0], jo[:, 0]):.3e}"
+    errs = {"port against reference decode": rel(to, jo),
+            "reference forward against its decode": rel(jo, jfwd),
+            "port forward against its decode": rel(to, tfwd)}
+    assert all(e < bound for e in errs.values()), f"{name}: {errs} (bound {bound:.3f})"
+    if past is not None:
+        gate, which = past
+        assert errs[which] > gate, (name, errs)

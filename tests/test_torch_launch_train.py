@@ -25,8 +25,11 @@ def test_options_are_the_reference_launchers():
         "arch": "dbrx-132b", "smoke": False, "steps": 50, "batch": 8, "seq": 64, "docs": 256,
         "lr": 3e-4, "microbatches": 1, "craig_fraction": 0.5, "no_craig": False,
         "select_every": 1, "ckpt": None, "device": "cuda"}
+    assert train.parse_args(["--arch", "xlstm-1.3b"]).arch == "xlstm-1.3b"  # ported
     with pytest.raises(SystemExit):
-        train.parse_args(["--arch", "xlstm-1.3b"])  # not ported: not a choice
+        train.parse_args(["--arch", "mamba-2.8b"])  # not registered: not a choice
+    with pytest.raises(ValueError, match="codebook heads"):
+        train.main(["--arch", "musicgen-medium", "--smoke", "--device", "cpu"])
 
 
 def test_the_launcher_raises_for_cuda_without_a_card():

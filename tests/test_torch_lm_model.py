@@ -30,7 +30,7 @@ from repro_torch.configs import get_config
 from repro_torch.models import attention as tattn
 from repro_torch.models import layers as tlayers
 from repro_torch.models import model as tmodel
-from repro_torch.models.config import ModelConfig, require_ported
+from repro_torch.models.config import ModelConfig, validate_config
 
 # 2 layers, d_model 64, 4 heads over 2 kv heads, vocab 250 padded to 256
 SMALL = dict(
@@ -94,18 +94,29 @@ def test_qwen3_config_is_the_reference():
     cfg = get_config("qwen3-1.7b")
     assert cfg.param_count() == 2_031_739_904 == jget("qwen3-1.7b").param_count()
     assert cfg.padded_vocab == 151_936 and cfg.layer_kinds == ("attn",) * 28
-    require_ported(cfg)
+    validate_config(cfg)
 
 
 @pytest.mark.parametrize("bad", [dict(frontend="embeddings"),
                                  dict(block_pattern=("mlstm", "attn")),
                                  dict(n_codebooks=2)])
 def test_unported_families_raise(bad):
+    """The embeddings frontend, an mLSTM pattern and codebook heads, once
+    refused, now build; what the reference itself rejects (an unknown
+    remat policy or layer kind) still raises."""
     cfg = ModelConfig(**{**SMALL, **bad})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        require_ported(cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmodel.init_params(cfg, torch.Generator().manual_seed(0))
+    validate_config(cfg)
+    params = tmodel.init_params(cfg, torch.Generator().manual_seed(0))
+    assert ("embed" in params) == (cfg.frontend == "tokens")
+    want = (cfg.padded_vocab, cfg.d_model)
+    assert tuple(params["unembed"].shape) == (
+        want if cfg.n_codebooks == 1 else (cfg.n_codebooks, *want))
+    assert set(params) == set(tmodel.param_shapes(cfg))
+    with pytest.raises(ValueError, match="remat policy"):
+        validate_config(dataclasses.replace(cfg, remat_policy="some"))
+    with pytest.raises(ValueError, match="layer kinds"):
+        tmodel.init_params(dataclasses.replace(cfg, block_pattern=("mamba",)),
+                           torch.Generator().manual_seed(0))
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

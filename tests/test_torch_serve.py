@@ -24,7 +24,7 @@ from repro_torch.configs import get_config, smoke_config
 from repro_torch.examples import serve_batched
 from repro_torch.launch import serve as launch_serve
 from repro_torch.models import init_params, init_serve_state
-from repro_torch.models.config import require_ported
+from repro_torch.models.config import validate_config
 from repro_torch.serve import greedy_generate, make_prefill_step, make_serve_step
 from test_torch_decode import ARCHS, _model
 
@@ -98,11 +98,16 @@ def test_launch_serve_decode_mode_on_the_cpu(capsys):
     assert torch.equal(out, again)
 
 
-def test_launch_serve_options_are_the_reference_launchers():
+def test_launch_serve_options_are_the_reference_launchers(capsys):
+    out = launch_serve.main(["--arch", "xlstm-1.3b", "--smoke", "--device", "cpu",
+                             "--batch", "2", "--prompt-len", "4", "--new", "3"])
+    assert tuple(out.shape) == (2, 7) and "xlstm-1.3b: (2, 7) in" in capsys.readouterr().out
     with pytest.raises(SystemExit):
-        launch_serve.main(["--arch", "xlstm-1.3b", "--device", "cpu"])  # not ported
+        launch_serve.main(["--arch", "mamba-2.8b", "--device", "cpu"])  # not registered
     with pytest.raises(SystemExit):
         launch_serve.main(["--device", "cpu"])  # --arch or --coreset
+    with pytest.raises(ValueError, match="codebook heads"):
+        launch_serve.main(["--arch", "musicgen-medium", "--smoke", "--device", "cpu"])
 
 
 @pytest.mark.parametrize("window", [0, 8])
@@ -115,7 +120,7 @@ def test_serve_batched_example_on_the_cpu(window, capsys):
     assert ("local window 8" if window else "global attention") in text
     cfg = serve_batched.demo_config(window)
     assert cfg.family == ("hybrid" if window else "dense")
-    require_ported(cfg)
+    validate_config(cfg)
 
 
 def test_recurrentgemma_config_is_the_reference():
@@ -124,7 +129,7 @@ def test_recurrentgemma_config_is_the_reference():
                           jregistry.smoke_config("recurrentgemma-9b"))):
         assert dataclasses.asdict(ours) == dataclasses.asdict(theirs)
         assert ours.param_count() == theirs.param_count()
-        require_ported(ours)
+        validate_config(ours)
     full = get_config("recurrentgemma-9b")
     assert full.param_count() == 10_444_558_336  # 41.8 GB in fp32
     assert full.layer_kinds[-3:] == ("local_attn", "rglru", "rglru")
