@@ -110,7 +110,21 @@ version:
      to ``forward``) and (h) musicgen-medium (every codebook's logits held
      to ``forward``, also with fp32 products).  No kernel runs on this
      path (the reference's is plain JAX too);
- 13. the report: one JSON line per the six kernels, then the last line,
+ 13. slice 12's dry run and roofline (``launch/dryrun.py``,
+     ``roofline.py``): (a) the p1 and p2 probes of every arch × shape cell
+     and the full-depth decode_32k, long_500k and select_pool cells,
+     traced on fake tensors of the card's device type by three
+     ``launch/dryrun.py`` subprocesses started before phase 12, each
+     cell's reckoned GB, ``fits``, dominant term and bound printed; (b) the
+     cells one card holds run for real on phase 12's models, each measured
+     peak (``max_memory_allocated``) held to the in-process reckoning of
+     the same cell within PEAK_TOL and its ms printed against its roofline
+     bound: long_500k decode steps from position 524,284 and decode_32k at
+     batch 128 for recurrentgemma-9b and xlstm-1.3b, decode_32k for
+     qwen3-1.7b at the largest batch the reckoning fits, and the
+     qwen3-1.7b select step at 8 × 4,096 (``ce_proxy`` at (32,768, 2,048,
+     151,936), held to its plain twin there);
+ 14. the report: one JSON line per the six kernels, then the last line,
      {"ok": true, "device": {...}}.
 
 Before phases 2–8, ``kernels`` compares ``topk_sim`` (both list routes:
@@ -359,10 +373,21 @@ SERVE_GRID = (1024, 32, 64)
 # scattered backward adds in fp32 in no fixed order.
 REMAT_POLICIES, REMAT_TOL = ("nothing", "dots", "full"), 1e-4
 
-# Published dense peaks (NVIDIA data sheet, H100 SXM): fp32 on the CUDA
-# cores, bf16 on the tensor cores, and device-memory bandwidth, keyed by
-# the card's name.
-PEAKS = {"NVIDIA H100 80GB HBM3": (67e12, 989e12, 3.35e12)}
+# Phase 13: the dry-run sweep's three subprocesses (archs dealt round
+# robin) write here; each real cell's measured peak must lie within
+# PEAK_TOL (relative) of its reckoned peak, a tolerance written down before
+# the first card run (PERF.md §6, PR 22); decode cells take DECODE_STEPS
+# timed steps, long_500k's from LONG_FROM; the qwen3-1.7b decode_32k batch
+# is the largest of DECODE_BATCHES the reckoning fits in DECODE_FILL of
+# the card's free memory; SELECT_BT cuts select_pool's 256 × 4,096 batch.
+DRYRUN_DIR = ROOT / "artifacts" / "dryrun_torch"
+DRYRUN_WORKERS = 3
+PEAK_TOL = 0.10
+DECODE_STEPS = 3
+LONG_FROM = 524_284
+DECODE_BATCHES = (128, 64, 32, 16, 8)
+DECODE_FILL = 0.9
+SELECT_BT = (8, 4096)
 
 
 def log(msg: str) -> None:
@@ -378,6 +403,9 @@ def card_line() -> str:
 
 
 def peaks_for(name: str) -> tuple[float, float, float]:
+    """(fp32, bf16, bytes) a second for the card: ``roofline.PEAKS``."""
+    from repro_torch.roofline import PEAKS
+
     if name not in PEAKS:
         raise RuntimeError(f"no published peaks recorded for {name!r}")
     return PEAKS[name]
@@ -2798,14 +2826,23 @@ def serve_subprocesses(card) -> None:
             f"({time.perf_counter() - t0:.1f}s, process start included); {card}")
 
 
-def serving(torch, card, dev, mem_bw: float) -> None:
+def serving(torch, card, dev, mem_bw: float, real: dict | None = None) -> None:
     """Phase 12: (a) qwen3-1.7b and (b) recurrentgemma-9b at full published
     depth and width, (c) the ring wrap and the blockwise windowed path,
     (d) moonshot-v1-16b-a3b at published width with depth cut (the MoE FFN
     in decode), (e) the two serving subprocesses; slice 11's (f)
     xlstm-1.3b, (g) qwen2-vl-7b (with the M-RoPE against RoPE check) and
-    (h) musicgen-medium at full published depth and width."""
+    (h) musicgen-medium at full published depth and width.  ``real`` maps
+    a cell's tag to a further check on its model (phase 13 (b))."""
     from repro_torch.configs import get_config
+
+    real = real or {}
+
+    def also(tag, check=None):
+        extra = real.get(tag)
+        if extra is None or check is None:
+            return extra or check
+        return lambda *a: (check(*a), extra(*a))
 
     def cell(tag, check=None):
         name, layers, prefill_bt, forced_bt, gen, runs, tol = {**SERVE_CELLS,
@@ -2818,16 +2855,292 @@ def serving(torch, card, dev, mem_bw: float) -> None:
                    None if check is None else lambda params: check(torch, card, dev, cfg, params))
         log(f"[12] {tag}: {time.perf_counter() - t0:.1f}s")
 
-    cell("(a)")
-    cell("(b)")
+    cell("(a)", also("(a)"))
+    cell("(b)", also("(b)"))
     t0 = time.perf_counter()
     ring_wrap(torch, card, dev)
     log(f"[12] (c): {time.perf_counter() - t0:.1f}s")
     cell("(d)")
     serve_subprocesses(card)
-    cell("(f)", lambda *a: fp32_decode(*a, "(f)"))
+    cell("(f)", also("(f)", lambda *a: fp32_decode(*a, "(f)")))
     cell("(g)", mrope_equals_rope)
     cell("(h)", lambda *a: fp32_decode(*a, "(h)"))
+
+
+# ---------------------------------------------------------------------------
+# phase 13: the dry run and the roofline
+# ---------------------------------------------------------------------------
+
+
+def start_dryrun_sweep() -> list:
+    """Phase 13 (a), started before phase 12 (it is host work alone):
+    DRYRUN_WORKERS ``launch/dryrun.py`` processes, the archs dealt round
+    robin, each tracing its archs' p1 and p2 probes of every shape, then
+    their full-depth decode_32k, long_500k and select_pool cells, on fake
+    tensors of the card's device type.  Returns [(Popen, log path)]; each
+    process leads a session of its own, so ``stop_sweep`` ends it whole."""
+    import shlex
+
+    from repro_torch.configs import ARCHS
+
+    archs = sorted(ARCHS)
+    DRYRUN_DIR.mkdir(parents=True, exist_ok=True)
+    procs = []
+    for w in range(DRYRUN_WORKERS):
+        base = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+                *archs[w::DRYRUN_WORKERS], "--device", "cuda", "--out", str(DRYRUN_DIR),
+                "--force"]
+        cmd = "; ".join(f"{shlex.join(c)} || rc=1" for c in (
+            base + ["--probes-only"],
+            base + ["--shape", "decode_32k", "long_500k", "select_pool"]))
+        path = DRYRUN_DIR / f"sweep{w}.log"
+        script = f"rc=0; time {{ {cmd}; }}; exit $rc"
+        with open(path, "w") as out:
+            procs.append((subprocess.Popen(
+                ["bash", "-c", script], stdout=out, stderr=subprocess.STDOUT,
+                env=dict(os.environ, PYTHONPATH=str(ROOT / "src")), start_new_session=True),
+                path))
+    return procs
+
+
+def stop_sweep(procs) -> None:
+    import signal
+
+    for proc, _ in procs:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+
+
+def reckon_cell(torch, cfg, shape) -> dict:
+    """The dry run's reckoning of ``cfg`` at ``shape`` traced in this
+    process on fake CUDA tensors, with its roofline terms."""
+    from repro_torch.launch import dryrun
+    from repro_torch.roofline import roofline_terms
+
+    t0 = time.perf_counter()
+    cell = dryrun.build_cell(cfg, shape)
+    rec = dryrun.reckon(cell["fn"], cell["make_args"], "cuda")
+    c = rec["cost"]
+    terms = roofline_terms(c["flops_bf16"], c["flops_fp32"], c["bytes accessed"],
+                           card=torch.cuda.get_device_name(0))
+    dominant = max(terms, key=terms.get)
+    return {**rec, "terms": terms, "dominant": dominant, "bound_ms": 1e3 * terms[dominant],
+            "trace_s": time.perf_counter() - t0}
+
+
+def tensor_bytes(tree) -> int:
+    return sum(t.untyped_storage().nbytes() for t in tree.values())
+
+
+def hold_reckoning(torch, card, row: dict, peak: int, rec: dict) -> dict:
+    """Phase 13 (b): the measured peak against the reckoned one, within
+    PEAK_TOL of it; logs the cell's ms against its roofline bound."""
+    want = rec["memory"]["peak_bytes"]
+    row.update(peak_gb=peak / 1e9, reckoned_gb=want / 1e9, ratio=peak / want,
+               bound_ms=rec["bound_ms"], dominant=rec["dominant"], trace_s=rec["trace_s"])
+    log(f"[13] (b) {row['cell']}: peak {peak / 1e9:.3f} GB against reckoned {want / 1e9:.3f} "
+        f"GB (ratio {peak / want:.4f}, tol {PEAK_TOL}); {row['ms']:.2f} ms a step against "
+        f"its roofline bound {rec['bound_ms']:.3f} ms ({rec['dominant']}; compute "
+        f"{1e3 * rec['terms']['compute']:.3f}, memory {1e3 * rec['terms']['memory']:.3f} ms); "
+        f"reckoned in {rec['trace_s']:.1f}s; {card}")
+    if not abs(peak - want) <= PEAK_TOL * want:
+        raise AssertionError(f"{row['cell']}: measured peak {peak} bytes is not within "
+                             f"{PEAK_TOL} of the reckoned {want}")
+    return row
+
+
+def real_decode(torch, card, dev, cfg, params, shape_name: str, batch: int,
+                start: int) -> dict:
+    """Phase 13 (b): DECODE_STEPS timed serve steps (after one more) of
+    ``cfg`` at ``shape_name`` with ``batch`` rows from position ``start``,
+    on phase 12's weights; logits finite and (B, V) or (B, C, V)."""
+    from repro_torch.configs.shapes import SHAPES
+    from repro_torch.models import init_serve_state
+    from repro_torch.serve import make_serve_step
+
+    shape = dataclasses.replace(SHAPES[shape_name], global_batch=batch)
+    rec = reckon_cell(torch, cfg, shape)
+    other = torch.cuda.memory_allocated() - tensor_bytes(params)
+    state = init_serve_state(cfg, batch, shape.seq_len, dev)
+    state["pos"] = start
+    inputs = seeded_inputs(torch, cfg, dev, batch, 1, 5)
+    step = make_serve_step(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    with torch.inference_mode():
+        for _ in range(DECODE_STEPS + 1):
+            t0 = time.perf_counter()
+            logits, state = step(params, state, {input_key(cfg): inputs})
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated() - other
+    want = (batch, cfg.n_codebooks, cfg.padded_vocab) if cfg.n_codebooks > 1 else (
+        batch, cfg.padded_vocab)
+    if tuple(logits.shape) != want or not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"{cfg.name} {shape_name}: logits {tuple(logits.shape)}, want "
+                             f"{want}, finite {bool(torch.isfinite(logits).all())}")
+    if state["pos"] != start + DECODE_STEPS + 1:
+        raise AssertionError(f"{cfg.name} {shape_name}: position {state['pos']}")
+    del state, logits
+    torch.cuda.empty_cache()
+    row = {"cell": f"{cfg.name} {shape_name} B={batch} from position {start}",
+           "ms": 1e3 * statistics.median(times[1:])}
+    return hold_reckoning(torch, card, row, peak, rec)
+
+
+def fitting_batch(torch, cfg, shape_name: str, free: int) -> tuple[int, dict]:
+    """The largest of DECODE_BATCHES whose reckoned peak fits DECODE_FILL
+    of ``free`` bytes."""
+    from repro_torch.configs.shapes import SHAPES
+
+    for b in DECODE_BATCHES:
+        rec = reckon_cell(torch, cfg, dataclasses.replace(SHAPES[shape_name], global_batch=b))
+        if rec["memory"]["peak_bytes"] <= DECODE_FILL * free:
+            return b, rec
+    raise AssertionError(f"{cfg.name} {shape_name}: no batch of {DECODE_BATCHES} fits")
+
+
+def real_select(torch, card, dev, cfg, params, peaks) -> dict:
+    """Phase 13 (b): the qwen3-1.7b select step (``make_select_step``,
+    'auto': the ``ce_proxy`` kernel) at SELECT_BT, its ``ce_proxy`` launches
+    counted, its peak held to the reckoning; then the kernel at that
+    (B·T, D, V) held to its plain twin, timed beside the twin and the
+    einsum head (those launches not counted)."""
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.core.proxy import lm_unembed_input_proxy
+    from repro_torch.kernels import ce_proxy as kce, ops
+    from repro_torch.models import COMPUTE_DTYPE, forward, unembed_matrix
+    from repro_torch.train.train_step import make_select_step
+
+    B, T = SELECT_BT
+    rec = reckon_cell(torch, cfg, ShapeSpec("select_pool", T, B, "select"))
+    batch = {"tokens": seeded_tokens(torch, cfg, dev, B, T, 6),
+             "labels": seeded_tokens(torch, cfg, dev, B, T, 7)}
+    step = make_select_step(cfg)
+    other = torch.cuda.memory_allocated() - tensor_bytes(params) - tensor_bytes(batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.LAUNCHES["ce_proxy"] = 0
+    t0 = time.perf_counter()
+    feats = step(params, batch)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = ops.LAUNCHES["ce_proxy"]
+    peak = torch.cuda.max_memory_allocated() - other
+    if tuple(feats.shape) != (B, cfg.d_model) or not bool(torch.isfinite(feats).all()):
+        raise AssertionError(f"select step: {tuple(feats.shape)}, finite "
+                             f"{bool(torch.isfinite(feats).all())}")
+    if launches != 1:
+        raise AssertionError(f"select step launched ce_proxy {launches} times, want 1")
+    del feats
+    row = hold_reckoning(torch, card, {"cell": f"{cfg.name} select_pool B={B}×{T}",
+                                       "ms": 1e3 * secs}, peak, rec)
+
+    _, bf16_peak, mem_bw = peaks
+    with torch.no_grad():
+        hidden, _ = forward(params, cfg, batch)
+    h = hidden.reshape(B * T, -1).to(COMPUTE_DTYPE)
+    w = unembed_matrix(params).to(COMPUTE_DTYPE)
+    y = batch["labels"].reshape(-1).to(torch.int32)
+    D, V = h.shape[1], w.shape[0]
+    got = kce.ce_proxy_cuda(h, w, y, cfg.vocab_size)
+    plain = kce.ce_proxy_torch(h, w, y, cfg.vocab_size, torch.bfloat16)
+    err = float((got - plain).abs().max())
+    tol = ce_tol(w, "bfloat16")
+    del got, plain
+    kernel = {
+        "ms": median_ms(torch, lambda: kce.ce_proxy_cuda(h, w, y, cfg.vocab_size), 5),
+        "plain_ms": median_ms(torch, lambda: kce.ce_proxy_torch(
+            h, w, y, cfg.vocab_size, torch.bfloat16), 3, warm=1),
+        "einsum_head_ms": median_ms(torch, lambda: lm_unembed_input_proxy(
+            hidden, w, batch["labels"], chunk=cfg.logit_chunk, valid_v=cfg.vocab_size,
+            compute_dtype=COMPUTE_DTYPE), 3, warm=1),
+        **ce_bound(B * T, D, V, 2, bf16_peak, mem_bw)}
+    log(f"[13] (b) ce_proxy bf16 at ({B * T:,}, {D:,}, {V:,}): max |kernel − plain| {err:.3e} "
+        f"(tol {tol:.3e}); kernel {kernel['ms']:.3f} ms, plain {kernel['plain_ms']:.3f} ms, "
+        f"einsum head {kernel['einsum_head_ms']:.3f} ms, bound {kernel['bound_ms']:.3f} ms "
+        f"({kernel['bound_by']}); {card}")
+    if not err <= tol:
+        raise AssertionError(f"ce_proxy at ({B * T}, {D}, {V}): {err} > {tol}")
+    del hidden, h, w, y
+    torch.cuda.empty_cache()
+    return {**row, "launches": launches, "ce_err": err, "ce": kernel}
+
+
+def reckoned_cells(torch, card, dev, peaks, rows: list) -> dict:
+    """Phase 13 (b) as checks on phase 12's models: (a) qwen3-1.7b
+    decode_32k at the largest batch the reckoning fits and the select step
+    at SELECT_BT; (b) recurrentgemma-9b and (f) xlstm-1.3b long_500k (batch
+    1, from LONG_FROM) and decode_32k at batch 128.  Each appends its row
+    to ``rows``, with its seconds."""
+
+    def timed(fn):
+        def run(torch_, card_, dev_, cfg, params):
+            t0 = time.perf_counter()
+            fn(cfg, params)
+            rows.append({"phase_s": time.perf_counter() - t0})
+        return run
+
+    def dense(cfg, params):
+        free = (torch.cuda.get_device_properties(dev).total_memory
+                - torch.cuda.memory_allocated() + tensor_bytes(params))
+        b, _ = fitting_batch(torch, cfg, "decode_32k", free)
+        rows.append(real_decode(torch, card, dev, cfg, params, "decode_32k", b, 32_768 - 4))
+        rows.append(real_select(torch, card, dev, cfg, params, peaks))
+
+    def subquadratic(cfg, params):
+        rows.append(real_decode(torch, card, dev, cfg, params, "long_500k", 1, LONG_FROM))
+        rows.append(real_decode(torch, card, dev, cfg, params, "decode_32k", 128, 32_768 - 4))
+
+    return {"(a)": timed(dense), "(b)": timed(subquadratic), "(f)": timed(subquadratic)}
+
+
+def dryrun_report(torch, card, procs, rows: list) -> dict:
+    """Phase 13 (a)'s report: waits for the sweep, then every arch × shape
+    cell's reckoned GB, ``fits``, dominant term and bound from
+    ``roofline.analyze_all``; raises unless every probe traced (or skipped
+    as the reference skips: long_500k for a full-attention arch) and every
+    full-depth cell the sweep asked for did."""
+    from repro_torch.configs import ARCHS, get_config
+    from repro_torch.configs.shapes import SHAPES
+    from repro_torch.roofline import analyze_all
+
+    for proc, path in procs:
+        rc = proc.wait(timeout=900)
+        tail = path.read_text().strip().splitlines()
+        log(f"[13] (a) sweep {path.name}: rc {rc}; {' | '.join(tail[-3:])}")
+        if rc != 0:
+            raise AssertionError(f"dry-run sweep {path} exited {rc}: {' | '.join(tail[-8:])}")
+    shapes = list(SHAPES) + ["select_pool"]
+    walls, missing = [], []
+    for arch in sorted(ARCHS):
+        for shape in shapes:
+            probes = (1, 2, 0) if shape in ("decode_32k", "long_500k", "select_pool") else (1, 2)
+            for probe in probes:
+                path = DRYRUN_DIR / (f"{arch}__{shape}__h100x1" + (f"__p{probe}" if probe
+                                                                      else "") + ".json")
+                rec = json.loads(path.read_text()) if path.exists() else {"status": "missing"}
+                skip = shape == "long_500k" and not get_config(arch).is_subquadratic
+                if rec["status"] != ("skip" if skip else "ok"):
+                    missing.append((arch, shape, probe, rec["status"]))
+                walls.append(rec.get("wall_s", 0.0))
+    if missing:
+        raise AssertionError(f"dry-run cells not reckoned: {missing}")
+    cells = analyze_all(str(DRYRUN_DIR))
+    for c in cells:
+        log(f"[13] (a) {c.arch} {c.shape} ({c.step}): {c.mem_gb:.1f} GiB, "
+            f"{'fits' if c.fits_hbm else 'does not fit'}; dominant {c.dominant}; bound "
+            f"{1e3 * c.t_dominant:.3f} ms (compute {1e3 * c.t_compute:.3f}, memory "
+            f"{1e3 * c.t_memory:.3f}); useful {c.useful_ratio:.3f}, MFU bound "
+            f"{c.mfu_bound:.3f}; {'probes' if c.extrapolated else 'full depth'}")
+    log(f"[13] (a) {len(cells)} cells reckoned, {len(walls)} artifacts traced in "
+        f"{sum(walls):.1f}s of host time; {card}")
+    real = [r for r in rows if "cell" in r]
+    return {"cells": len(cells), "real_s": sum(r.get("phase_s", 0.0) for r in rows),
+            "launches": sum(r.get("launches", 0) for r in real),
+            "ce_err": max([r["ce_err"] for r in real if "ce_err" in r] or [0.0])}
 
 
 def main() -> None:
@@ -3119,12 +3432,29 @@ def main() -> None:
     log(f"[11] phase total {time.perf_counter() - t0:.1f}s; launches {spread}")
     del cov_feats
 
-    # -- 12. serving: prefill and KV-cache decode ----------------------------
+    # -- 12. serving: prefill and KV-cache decode; 13 (b) on its models ------
     t0 = time.perf_counter()
-    serving(torch, card, dev, mem_bw)
-    log(f"[12] phase total {time.perf_counter() - t0:.1f}s")
+    sweep = start_dryrun_sweep()
+    try:
+        rows: list = []
+        serving(torch, card, dev, mem_bw,
+                reckoned_cells(torch, card, dev, (fp32_peak, bf16_peak, mem_bw), rows))
+        real_s = sum(r.get("phase_s", 0.0) for r in rows)
+        log(f"[12] phase total {time.perf_counter() - t0 - real_s:.1f}s (phase 13 (b)'s "
+            f"{real_s:.1f}s apart)")
 
-    # -- 13. report ---------------------------------------------------------
+        # -- 13. the dry run and the roofline --------------------------------
+        t0 = time.perf_counter()
+        dry = dryrun_report(torch, card, sweep, rows)
+    finally:
+        stop_sweep(sweep)
+    results["ce_proxy"]["launches"] += dry["launches"]
+    max_err["ce_proxy"] = max(max_err["ce_proxy"], dry["ce_err"])
+    log(f"[13] phase total {time.perf_counter() - t0 + dry['real_s']:.1f}s ((b) "
+        f"{dry['real_s']:.1f}s inside phase 12's cells, (a)'s report "
+        f"{time.perf_counter() - t0:.1f}s after it)")
+
+    # -- 14. report ---------------------------------------------------------
     replaces = {
         "fl_gains": "src/repro/kernels/fl_gains.py:106",
         "fl_gains_argmax": "src/repro/kernels/fl_gains.py:197",
@@ -3154,8 +3484,8 @@ def main() -> None:
         })
     if any(k["launches"] < 1 for k in kernels):
         raise AssertionError(f"a kernel of the path was never launched: {kernels}")
-    log(f"[13] ce_proxy fp32 at the main-path shape: {results['ce_proxy']['fp32']}")
-    log(f"[13] total {time.perf_counter() - t_start:.1f}s")
+    log(f"[14] ce_proxy fp32 at the main-path shape: {results['ce_proxy']['fp32']}")
+    log(f"[14] total {time.perf_counter() - t_start:.1f}s")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

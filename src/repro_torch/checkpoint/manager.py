@@ -1,7 +1,9 @@
 """Checkpointing: atomic, optionally asynchronous, keep-N.
 
 Port of ``repro.checkpoint.manager.CheckpointManager`` in the port's own
-format (the reference's ``.npy`` directories are not read)::
+format (``restore_reference`` reads the reference's ``.npy`` directories:
+``manifest.json`` and ``arrays/<id>.npy``, with numpy; ``convert.py``
+turns what it reads into the port's parameters and optimizer state)::
 
     <root>/step_00000123/
         tensors.pt       # torch.save of {leaf path: CPU tensor}
@@ -30,6 +32,7 @@ import shutil
 import threading
 from typing import Any
 
+import numpy as np
 import torch
 
 __all__ = ["CheckpointManager", "flatten", "unflatten"]
@@ -66,6 +69,45 @@ def unflatten(template: Any, flat: dict[str, Any], prefix: str = "") -> Any:
     if isinstance(template, torch.Tensor):
         return value.to(device=template.device, dtype=template.dtype)
     return type(template)(value.item())
+
+
+def _nest(flat: dict[str, Any]) -> Any:
+    """{'a/0/b': leaf} → nested dicts, a dict keyed 0…n−1 a list; a key
+    of a NamedTuple field ('.step': JAX's attribute path) loses its dot."""
+    tree: dict = {}
+    for path, leaf in flat.items():
+        node, parts = tree, [p.lstrip(".") for p in path.split("/")]
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = leaf
+
+    def lists(t):
+        if not isinstance(t, dict):
+            return t
+        t = {k: lists(v) for k, v in t.items()}
+        if t and all(k.isdigit() for k in t) and sorted(map(int, t)) == list(range(len(t))):
+            return [t[str(i)] for i in range(len(t))]
+        return t
+
+    return lists(tree)
+
+
+def _read_reference(step_dir: str) -> tuple[Any, dict]:
+    """A reference checkpoint's step directory → (its tree, nested dicts
+    and lists of numpy arrays; its extras).  Reads the reference's
+    ``manifest.json`` and one ``arrays/<id>.npy`` a leaf with numpy alone;
+    a leaf the reference left out of the tree (``None``, an empty tuple)
+    is not there."""
+    with open(os.path.join(step_dir, "manifest.json")) as f:
+        manifest = json.load(f)
+    flat = {}
+    for leaf in manifest["leaves"]:
+        arr = np.load(os.path.join(step_dir, "arrays", leaf["file"]))
+        if list(arr.shape) != list(leaf["shape"]) or str(arr.dtype) != leaf["dtype"]:
+            raise ValueError(f"{step_dir}: {leaf['path']} holds {arr.dtype}{list(arr.shape)}, "
+                             f"the manifest says {leaf['dtype']}{leaf['shape']}")
+        flat[leaf["path"]] = arr
+    return _nest(flat), manifest.get("extras", {})
 
 
 class CheckpointManager:
@@ -161,6 +203,14 @@ class CheckpointManager:
         loading its tensors: what a caller needs to build its template."""
         with open(os.path.join(self._step_dir(step), "manifest.json")) as f:
             return json.load(f).get("extras", {})
+
+    def restore_reference(self, step: int | None = None) -> tuple[Any, dict]:
+        """A checkpoint the reference's ``CheckpointManager`` wrote under
+        this root (the latest by default) → (tree of numpy arrays, extras);
+        ``convert.model_params_from_reference`` and
+        ``convert.opt_state_from_reference`` turn its parameters and
+        optimizer state into the port's."""
+        return _read_reference(self._step_dir(step))
 
     def restore(self, template: Any, step: int | None = None) -> tuple[Any, dict]:
         """Restore into ``template``'s structure → (tree, extras)."""

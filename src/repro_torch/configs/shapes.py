@@ -2,7 +2,8 @@
 
 ``decode_*`` / ``long_*`` lower a serve step (one new token against a KV
 cache of length seq_len), NOT a train step (``serve.make_serve_step``).
-``long_500k`` requires sub-quadratic attention.
+``long_500k`` requires sub-quadratic attention.  ``launch/dryrun.py``
+reckons every arch × shape cell (and the CRAIG ``select_pool`` cell).
 """
 from __future__ import annotations
 

@@ -3,8 +3,9 @@
 No counterpart in ``repro``: this module takes the reference package's
 outputs as plain numpy arrays and dicts (``EngineConfig.to_dict()``,
 ``CoresetSelection`` fields, the logistic-regression weight vector, an LM
-``init_params`` tree, an LM serve state) and turns them into the port's
-objects.  It never imports JAX.
+``init_params`` tree, an optimizer state, an LM serve state; a reference
+checkpoint as ``checkpoint.CheckpointManager.restore_reference`` reads
+it) and turns them into the port's objects.  It never imports JAX.
 """
 from __future__ import annotations
 
@@ -23,6 +24,7 @@ __all__ = [
     "params_from_reference",
     "PROXY_IMPL_FROM_REFERENCE",
     "model_params_from_reference",
+    "opt_state_from_reference",
     "serve_state_from_reference",
 ]
 
@@ -147,7 +149,10 @@ def model_params_from_reference(tree: dict, cfg, device: str | torch.device = "c
     from repro_torch.models import param_shapes
 
     dev = resolve_device(device)
-    layers = _unstack_layers(tree["stack"], len(cfg.block_pattern))
+    # a checkpoint read back leaves out what the reference's tree held as
+    # None (no full period) or an empty list (no remainder)
+    stack = {"scanned": None, "remainder": [], **tree["stack"]}
+    layers = _unstack_layers(stack, len(cfg.block_pattern))
     if len(layers) != cfg.n_layers:
         raise ValueError(f"tree holds {len(layers)} layers, config has {cfg.n_layers}")
     out = {}
@@ -169,6 +174,24 @@ def model_params_from_reference(tree: dict, cfg, device: str | torch.device = "c
     return {
         k: torch.from_numpy(np.array(v, np.float32)).to(dev) for k, v in out.items()
     }
+
+
+def opt_state_from_reference(state, cfg, device: str | torch.device = "cuda"):
+    """A reference ``OptState(step, inner)`` of an LM's parameters, as nested
+    dicts of numpy arrays (``{'step': (), 'inner': ...}``) or a NamedTuple
+    → the port's ``optim.OptState``: AdamW's ``{'m': tree, 'v': tree}`` and
+    momentum's tree ``m`` become flat fp32 dicts on ``device`` as
+    :func:`model_params_from_reference` makes them; SGD's empty state
+    stays empty."""
+    from repro_torch.optim.optimizers import OptState
+
+    if not isinstance(state, dict):  # the reference's NamedTuple itself
+        state = {"step": state.step, "inner": state.inner}
+    inner = state.get("inner") or {}
+    if "stack" in inner:  # momentum: the trace is a parameter tree
+        inner = {"m": inner}
+    return OptState(int(np.asarray(state["step"])),
+                    {k: model_params_from_reference(v, cfg, device) for k, v in inner.items()})
 
 
 _SLSTM_STATE = ("c", "n", "h", "m")  # the reference's tuple order

@@ -1,8 +1,8 @@
 """Deterministic synthetic data: classification pools and LM token streams.
 
 Port of ``repro.data.synthetic`` (``make_classification``,
-``TokenStream``): identical numpy copies, so the same seed gives the same
-data in both packages.
+``GaussianMixture``, ``TokenStream``): identical numpy copies, so the same
+seed gives the same data in both packages.
 """
 from __future__ import annotations
 
@@ -10,7 +10,7 @@ import dataclasses
 
 import numpy as np
 
-__all__ = ["make_classification", "TokenStream"]
+__all__ = ["GaussianMixture", "TokenStream", "make_classification"]
 
 
 def make_classification(
@@ -31,6 +31,28 @@ def make_classification(
     mode = (rng.random(n) < 0.15).astype(np.int64)
     x = centers[y * 2 + mode] + rng.normal(0, 1.0, (n, d))
     return x.astype(np.float32), y.astype(np.int32)
+
+
+@dataclasses.dataclass
+class GaussianMixture:
+    """Index-addressable classification pool (``make_classification``'s
+    points and labels, addressed by index)."""
+
+    n: int
+    d: int
+    n_classes: int
+    seed: int = 0
+
+    def __post_init__(self):
+        self.x, self.y = make_classification(self.n, self.d, self.n_classes, self.seed)
+
+    def subset(self, idx: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+        return self.x[idx], self.y[idx]
+
+    def class_labels(self, idx: np.ndarray) -> np.ndarray:
+        """Per-example class ids: the stratification key of a per-class
+        CRAIG refresh (paper §5)."""
+        return self.y[np.asarray(idx)]
 
 
 @dataclasses.dataclass

@@ -25,6 +25,7 @@ over tokens so the logits are (chunk, V) at a time.
 from __future__ import annotations
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import _build
 
@@ -71,8 +72,40 @@ def _check(hidden, unembed, labels, valid_v):
     return T, D, V
 
 
+@torch.library.custom_op("repro_torch::ce_proxy", mutates_args=())
+def _ce_proxy_op(hidden: torch.Tensor, unembed: torch.Tensor, labels: torch.Tensor,
+                 valid_v: int) -> torch.Tensor:
+    T, D = hidden.shape
+    V = unembed.shape[0]
+    lib = _build.library("ce_proxy")
+    out = torch.empty((T, D), dtype=torch.float32, device=hidden.device)
+    status = getattr(lib, _ENTRY[hidden.dtype])(
+        hidden.data_ptr(), unembed.data_ptr(), labels.data_ptr(), out.data_ptr(),
+        T, D, V, int(valid_v), torch.cuda.current_stream(hidden.device).cuda_stream,
+    )
+    _build.check(status, "ce_proxy")
+    LAUNCHES["ce_proxy"] += 1
+    return out
+
+
+@_ce_proxy_op.register_fake
+def _(hidden, unembed, labels, valid_v):
+    return hidden.new_empty(hidden.shape, dtype=torch.float32)
+
+
+@register_flop_formula(torch.ops.repro_torch.ce_proxy)
+def _ce_proxy_flops(hidden_shape, unembed_shape, *args, **kwargs) -> int:
+    """The kernel's two products: logits h·Wᵀ and p·W, 2·T·V·D each (the
+    softmax's exponentials and sums are not counted, as no elementwise op
+    is)."""
+    T, D = hidden_shape
+    return 4 * T * unembed_shape[0] * D
+
+
 def ce_proxy_cuda(hidden, unembed, labels, valid_v: int) -> torch.Tensor:
-    """Launch the fused proxy kernel.
+    """Launch the fused proxy kernel: ``torch.ops.repro_torch.ce_proxy``, a
+    custom op with a shape contract and a FLOP formula, so that a dry run
+    traces it on fake tensors (launching nothing) and counts its work.
 
     Args:
       hidden: (T, D), unembed: (V, D), both fp32 or both bf16 — the
@@ -86,16 +119,8 @@ def ce_proxy_cuda(hidden, unembed, labels, valid_v: int) -> torch.Tensor:
       RuntimeError: the launch failed, e.g. where the card cannot place
         the cluster that the bf16 route at this D needs.
     """
-    T, D, V = _check(hidden, unembed, labels, valid_v)
-    lib = _build.library("ce_proxy")
-    out = torch.empty((T, D), dtype=torch.float32, device=hidden.device)
-    status = getattr(lib, _ENTRY[hidden.dtype])(
-        hidden.data_ptr(), unembed.data_ptr(), labels.data_ptr(), out.data_ptr(),
-        T, D, V, int(valid_v), torch.cuda.current_stream(hidden.device).cuda_stream,
-    )
-    _build.check(status, "ce_proxy")
-    LAUNCHES["ce_proxy"] += 1
-    return out
+    _check(hidden, unembed, labels, valid_v)
+    return torch.ops.repro_torch.ce_proxy(hidden, unembed, labels, int(valid_v))
 
 
 def ce_proxy_torch(

@@ -26,7 +26,7 @@ from repro_torch.kernels import pairwise_l2 as _pw
 from repro_torch.kernels import topk_sim as _tk
 
 __all__ = ["fl_gains", "fl_gains_argmax", "ce_proxy", "topk_sim", "pairwise_l2",
-           "fl_replay", "resolve_impl", "LAUNCHES", "TILE_DTYPES"]
+           "fl_replay", "resolve_impl", "token_slice", "LAUNCHES", "TILE_DTYPES"]
 
 LAUNCHES = _build.LAUNCHES
 TILE_DTYPES = _fl.TILE_DTYPES
@@ -168,10 +168,25 @@ def ce_proxy(
         raise ValueError(f"valid_v={valid_v} outside [1, V={V}]")
     if resolve_impl(impl, hidden.device) == "torch":
         return _ce.ce_proxy_torch(hidden, unembed, labels, vv, compute_dtype)
-    return _ce.ce_proxy_cuda(
-        hidden.to(compute_dtype).contiguous(), unembed.to(compute_dtype).contiguous(),
-        labels.to(torch.int32).contiguous(), vv,
-    )
+    w = unembed.to(compute_dtype).contiguous()
+    h = hidden.to(compute_dtype).contiguous()
+    y = labels.to(torch.int32).contiguous()
+    # one launch a slice of tokens below the kernel's 2**31-element operand
+    # limit (the reference's select_pool batch, 256 × 4,096 tokens of D =
+    # 2,048, is 2**31): a token's proxy depends on its own row alone
+    rows = token_slice(h.shape[0], h.shape[1])
+    if rows >= h.shape[0]:
+        return _ce.ce_proxy_cuda(h, w, y, vv)
+    return torch.cat([_ce.ce_proxy_cuda(h[lo:lo + rows], w, y[lo:lo + rows], vv)
+                      for lo in range(0, h.shape[0], rows)])
+
+
+def token_slice(T: int, D: int) -> int:
+    """Tokens a ``ce_proxy`` launch takes: all T, or T split evenly into
+    the fewest slices whose (rows, D) operand stays below 2**31 elements."""
+    most = (2**31 - 1) // max(D, 1)
+    n = -(-T // most)
+    return -(-T // n)
 
 
 def topk_sim(

@@ -27,7 +27,9 @@ fault plan in ``$REPRO_FAULT_PLAN`` (``repro_torch.faults``, JSON) is
 installed at start-up.  ``--arch`` takes any registered architecture;
 as in the reference, a stub modality frontend (qwen2-vl-7b) is swapped
 to tokens, and codebook heads (musicgen-medium) are refused with a
-``ValueError`` (``launch.train.launch_config``).
+``ValueError`` (``launch.train.launch_config``).  What a serving cell
+costs before it runs — memory, FLOPs, bytes, roofline bound — is
+``launch/dryrun.py``'s to reckon (``--shape decode_32k long_500k``).
 """
 from __future__ import annotations
 

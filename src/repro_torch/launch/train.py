@@ -22,9 +22,12 @@ accumulation, checkpoint/restart (``--ckpt``) and SIGTERM → emergency
 save.  The trainer runs on ``--device`` (default
 ``cuda``; ``cpu`` on request); on a card the refresh's proxies go through
 the ``ce_proxy`` kernel.  The reference's multi-host training mesh (model
-parallelism over several cards) and ``--dry-run`` lowering are not ported
-(ROADMAP.md queue 1, 'Model parallelism and multi-GPU meshes', and item 8);
-distributed *selection* is (``launch.tree``).
+parallelism over several cards) is not ported (ROADMAP.md queue 1,
+'Model parallelism and multi-GPU meshes'); distributed *selection* is
+(``launch.tree``).  The reference's docstring names a ``--dry-run`` flag
+its launcher does not have; its dry run is ``launch/dryrun.py``, and so is
+the port's (``python -m repro_torch.launch.dryrun``: every arch × shape
+cell of one H100 reckoned on fake tensors, ``roofline.py`` on top).
 """
 from __future__ import annotations
 

@@ -33,6 +33,7 @@ import math
 
 import torch
 
+from repro_torch.models import loops
 from repro_torch.models.layers import apply_mrope, apply_rope, dense_init, rms_norm
 
 __all__ = ["AttentionConfig", "init_attention", "attention", "init_kv_cache",
@@ -144,11 +145,12 @@ def _blockwise_attention(q, k, v, scale: float, cfg: AttentionConfig):
         l = torch.zeros((B, H, cq, 1), device=q.device)
         acc = torch.zeros((B, H, cq, hd), device=q.device)
         qpos = qi * cq + torch.arange(cq, device=q.device)[:, None]
-        for kj in range(Tk // ckv):
-            if kj * ckv > (qi + 1) * cq - 1:
-                break  # this and every later chunk is in the future
-            if cfg.window is not None and (kj + 1) * ckv <= qi * cq - cfg.window:
-                continue  # wholly older than the window of every query here
+        # chunks wholly in the future, or wholly older than the window of
+        # every query here, are skipped
+        kjs = [kj for kj in range(Tk // ckv) if kj * ckv <= (qi + 1) * cq - 1 and not (
+            cfg.window is not None and (kj + 1) * ckv <= qi * cq - cfg.window)]
+        for j in loops.steps(len(kjs)):
+            kj = kjs[j]
             ks = k[:, kj * ckv:(kj + 1) * ckv]
             vs = v[:, kj * ckv:(kj + 1) * ckv]
             s = torch.einsum("bqhk,bshk->bhqs", qc, ks).float() * scale

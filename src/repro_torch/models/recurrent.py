@@ -45,6 +45,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models import loops
 from repro_torch.models.layers import activation_fn, dense_init, rms_norm
 
 __all__ = ["RGLRUConfig", "init_griffin_block", "griffin_block", "init_griffin_state",
@@ -202,7 +203,8 @@ def _mlstm_chunk_parallel(q, k, v, log_i, log_f, chunk: int = 256) -> torch.Tens
     n_st = torch.zeros((B, H, d), device=dev)
     m_st = torch.full((B, H), -1e30, device=dev)
     hs = []
-    for lo in range(0, T, C):
+    for ci in loops.steps(T // C):
+        lo = ci * C
         qc, kc, vc = q[:, :, lo:lo + C], k[:, :, lo:lo + C], v[:, :, lo:lo + C]
         lic, lfc = log_i[..., lo:lo + C], log_f[..., lo:lo + C]
         csum_f = torch.cumsum(lfc, dim=-1)  # Σ_{s≤t} log f_s
@@ -232,7 +234,7 @@ def _mlstm_chunk_parallel(q, k, v, log_i, log_f, chunk: int = 256) -> torch.Tens
         c_st = decay[..., None, None] * c_st + wk.transpose(-1, -2) @ vc
         n_st = decay[..., None] * n_st + wk.sum(dim=-2)
         m_st = m_next
-    return torch.cat(hs, dim=2)
+    return loops.widen(torch.cat(hs, dim=2), 2, T)
 
 
 def _heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -376,10 +378,10 @@ def slstm(p: dict, cfg: SLSTMConfig, x: torch.Tensor) -> torch.Tensor:
     wx = (x @ p["w_in"].to(dtype)).float()  # (B, T, 4·di)
     state = init_slstm_state(cfg, B, x.device)
     hs = []
-    for t in range(T):
+    for t in loops.steps(T):
         state, h = _slstm_step(p, cfg, state, wx[:, t])
         hs.append(h)
-    h = torch.stack(hs, dim=1).reshape(B, T, -1).to(dtype)
+    h = loops.widen(torch.stack(hs, dim=1), 1, T).reshape(B, T, -1).to(dtype)
     return _slstm_out(p, h)
 
 

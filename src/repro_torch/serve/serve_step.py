@@ -11,6 +11,11 @@ Port of ``repro.serve.serve_step``:
   ``max_new`` greedy tokens (argmax over the padded vocabulary, the first
   of equal maxima, as ``jnp.argmax``).  It runs under
   ``torch.inference_mode()`` on the prompt's device.
+
+The serving shapes of ``configs/shapes.py`` (``prefill_32k``,
+``decode_32k`` at batch 128, ``long_500k`` from a 524,288-deep state) are
+reckoned — memory, FLOPs, bytes, roofline bound — on fake tensors by
+``launch/dryrun.py``, whether or not one card holds them.
 """
 from __future__ import annotations
 

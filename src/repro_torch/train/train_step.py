@@ -25,6 +25,7 @@ import torch
 
 from repro_torch.models import loss_fn as model_loss_fn
 from repro_torch.models import proxy_features, proxy_features_fused
+from repro_torch.models import loops
 from repro_torch.models.config import ModelConfig
 from repro_torch.optim.optimizers import Optimizer, OptState
 
@@ -47,7 +48,7 @@ def make_train_step(cfg: ModelConfig, optimizer: Optimizer, microbatches: int = 
     def accumulated(params, batch):
         split = {k: torch.chunk(v, microbatches, dim=0) for k, v in batch.items()}
         grads, loss_sum, metrics = None, 0.0, None
-        for i in range(microbatches):
+        for i in loops.steps(microbatches):
             loss, metrics, g = grads_of(params, {k: v[i] for k, v in split.items()})
             loss_sum = loss_sum + loss
             if grads is None:

@@ -15,6 +15,7 @@ import torch
 
 from repro.distributed import compression as JC
 from repro_torch.distributed import compression as C
+import torch_threads  # noqa: F401,E402 — one intra-op thread a worker
 
 
 def _x(shape, seed, scale=1.0):

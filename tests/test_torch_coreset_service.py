@@ -20,6 +20,7 @@ from repro.serve import CoresetService as JService
 from repro_torch.faults import FailurePolicy
 from repro_torch.launch import serve as launch_serve
 from repro_torch.serve import CoresetService
+import torch_threads  # noqa: F401,E402 — one intra-op thread a worker
 
 REPO = Path(__file__).resolve().parent.parent
 

@@ -18,6 +18,7 @@ from repro.core import engines as JE
 from repro_torch import parity
 from repro_torch.core import engines as E
 from repro_torch.core.craig import CraigConfig, CraigSelector, _apportion_budgets
+import torch_threads  # noqa: F401,E402 — one intra-op thread a worker
 
 
 def _data(n, d, n_classes, seed):

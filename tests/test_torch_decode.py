@@ -41,7 +41,8 @@ from repro_torch.configs import smoke_config
 from repro_torch.models import attention as tattn
 from repro_torch.models import model as tmodel
 from repro_torch.models.config import ModelConfig
-from torch_lm_checks import strict_jit
+from torch_lm_checks import ref_init, strict_jit
+import torch_threads  # noqa: F401,E402 — one intra-op thread a worker
 
 TOL = dict(rtol=1e-4, atol=1e-5)
 CPU = torch.device("cpu")
@@ -169,7 +170,7 @@ def _model(name):
     arch, kw = ARCHS[name]
     jcfg = dataclasses.replace(jregistry.smoke_config(arch), **kw)
     cfg = dataclasses.replace(smoke_config(arch), **kw)
-    jp = jmodel.init_params(jax.random.PRNGKey(0), jcfg)
+    jp = ref_init(jcfg, 0)
     tp = convert.model_params_from_reference(jax.tree.map(np.asarray, jp), cfg, device="cpu")
     step = strict_jit(lambda p, s, b: jmodel.decode_step(p, jcfg, s, b))
     return jcfg, cfg, jp, tp, step
@@ -317,7 +318,7 @@ def test_decode_at_depth_is_the_references(name):
     arch, kw, T, bound, step0, past = DEPTH[name]
     jcfg = dataclasses.replace(jregistry.smoke_config(arch), **kw)
     cfg = dataclasses.replace(smoke_config(arch), **kw)
-    jp = jmodel.init_params(jax.random.PRNGKey(0), jcfg)
+    jp = ref_init(jcfg, 0)
     tp = convert.model_params_from_reference(jax.tree.map(np.asarray, jp), cfg, device="cpu")
     step = strict_jit(lambda p, s, b: jmodel.decode_step(p, jcfg, s, b))
     key = "tokens" if cfg.frontend == "tokens" else "embeddings"

@@ -34,6 +34,8 @@ from repro_torch.core import engines as E
 from repro_torch.core.craig import CraigConfig, CraigSelector
 from repro_torch.distributed import tree_select as T
 from repro_torch.launch.mesh import Mesh, compat_mesh, make_host_mesh, make_production_mesh
+from torch_lm_checks import ref_init  # noqa: E402
+import torch_threads  # noqa: F401,E402 — one intra-op thread a worker
 
 CPU = torch.device("cpu")
 OBJECTIVE_RTOL = 1e-3
@@ -397,7 +399,7 @@ def test_scan_extract_and_mesh_extract(monkeypatch):
     small = dict(name="tiny", family="dense", n_layers=2, d_model=32, n_heads=2,
                  n_kv_heads=2, d_ff=64, vocab_size=128, logit_chunk=16)
     jcfg, cfg = JModelConfig(**small), ModelConfig(**small)
-    jp = jmodel.init_params(jax.random.PRNGKey(1), jcfg)
+    jp = ref_init(jcfg, 1)
     tp = convert.model_params_from_reference(jax.tree.map(np.asarray, jp), cfg, device="cpu")
     jds = JTokenStream(n_docs=40, seq_len=16, vocab_size=128)
     ds = TokenStream(n_docs=40, seq_len=16, vocab_size=128)

@@ -22,6 +22,7 @@ import torch
 from repro.core import engines as JE
 from repro_torch import parity
 from repro_torch.core import engines as E
+import torch_threads  # noqa: F401,E402 — one intra-op thread a worker
 
 OBJECTIVE_RTOL = 1e-3
 

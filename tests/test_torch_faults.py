@@ -43,6 +43,7 @@ from repro_torch.optim import adamw, constant
 from repro_torch.serve import CoresetService
 from repro_torch.train import Trainer, TrainerConfig
 from repro_torch.train.train_step import make_select_step
+import torch_threads  # noqa: F401,E402 — one intra-op thread a worker
 
 CFG = ModelConfig(name="tiny", family="dense", n_layers=2, d_model=32, n_heads=2,
                   n_kv_heads=2, d_ff=64, vocab_size=128, logit_chunk=16)

@@ -33,6 +33,8 @@ from repro_torch.models.config import ModelConfig, validate_config
 from repro_torch.optim import adamw
 from repro_torch.train.train_step import make_select_step, make_train_step
 import torch_lm_checks as checks
+from torch_lm_checks import ref_init  # noqa: E402
+import torch_threads  # noqa: F401,E402 — one intra-op thread a worker
 
 CONSISTENCY = {
     "vlm": dict(name="vlm", family="vlm", n_layers=2, d_model=64, n_heads=4, n_kv_heads=2,
@@ -145,7 +147,7 @@ def test_convert_round_trip_and_refusal(arch):
     (C, V, D), no ``embed`` for the embeddings frontend), values equal; a
     tree with a missing or an extra leaf, or another shape, is refused."""
     jcfg, cfg = jregistry.smoke_config(arch), smoke_config(arch)
-    tree = jax.tree.map(np.asarray, jmodel.init_params(jax.random.PRNGKey(3), jcfg))
+    tree = jax.tree.map(np.asarray, ref_init(jcfg, 3))
     tp = convert.model_params_from_reference(tree, cfg, device="cpu")
     assert {k: tuple(v.shape) for k, v in tp.items()} == tmodel.param_shapes(cfg)
     un = np.swapaxes(tree["unembed"], -1, -2)

@@ -13,6 +13,7 @@ import torch
 
 from repro_torch.core.craig import CraigConfig, CraigSelector
 from repro_torch.kernels import ops
+import torch_threads  # noqa: F401,E402 — one intra-op thread a worker
 
 REPO = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [

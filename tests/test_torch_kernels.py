@@ -20,6 +20,7 @@ import torch
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.kernels import fl_gains as kfl, ops, ref
+import torch_threads  # noqa: F401,E402 — one intra-op thread a worker
 
 # n = 65: one row past a 64-row pool tile of the CUDA kernel; d = 257: past
 # its 64-wide resident cap, walked in chunks.

@@ -8,6 +8,7 @@ import pytest
 import torch
 
 from repro_torch.launch import train
+import torch_threads  # noqa: F401,E402 — one intra-op thread a worker
 
 
 @pytest.mark.parametrize("arch", ["qwen2-7b", "moonshot-v1-16b-a3b", "recurrentgemma-9b"])

@@ -26,6 +26,7 @@ from repro_torch import parity
 from repro_torch.core import engines as E
 from repro_torch.core import facility_location as fl
 from repro_torch.core.engines import stochastic as S
+import torch_threads  # noqa: F401,E402 — one intra-op thread a worker
 
 OBJECTIVE_RTOL = 1e-3
 

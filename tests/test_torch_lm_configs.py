@@ -29,7 +29,8 @@ from repro_torch import convert
 from repro_torch.configs import ARCHS, get_config, smoke_config
 from repro_torch.models import model as tmodel
 from repro_torch.models.config import validate_config
-from torch_lm_checks import strict_jit
+from torch_lm_checks import ref_init, strict_jit
+import torch_threads  # noqa: F401,E402 — one intra-op thread a worker
 
 ARCH_NAMES = ["qwen3-1.7b", "qwen2-7b", "granite-3-8b", "nemotron-4-15b",
               "moonshot-v1-16b-a3b", "dbrx-132b", "recurrentgemma-9b"]
@@ -56,7 +57,7 @@ def _np(t):
 
 def _setup(arch, seed=0):
     jcfg, cfg = jregistry.smoke_config(arch), smoke_config(arch)
-    jp = jmodel.init_params(jax.random.PRNGKey(seed), jcfg)
+    jp = ref_init(jcfg, seed)
     tp = convert.model_params_from_reference(jax.tree.map(np.asarray, jp), cfg, device="cpu")
     rng = np.random.default_rng(seed)
     batch = {"tokens": rng.integers(0, cfg.vocab_size, (B, T)).astype(np.int32),

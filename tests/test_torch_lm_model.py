@@ -31,6 +31,8 @@ from repro_torch.models import attention as tattn
 from repro_torch.models import layers as tlayers
 from repro_torch.models import model as tmodel
 from repro_torch.models.config import ModelConfig, validate_config
+from torch_lm_checks import ref_init  # noqa: E402
+import torch_threads  # noqa: F401,E402 — one intra-op thread a worker
 
 # 2 layers, d_model 64, 4 heads over 2 kv heads, vocab 250 padded to 256
 SMALL = dict(
@@ -59,7 +61,7 @@ def _tb(batch):
 
 
 def _params(jcfg, cfg, seed=0):
-    jp = jmodel.init_params(jax.random.PRNGKey(seed), jcfg)
+    jp = ref_init(jcfg, seed)
     return jp, convert.model_params_from_reference(jax.tree.map(np.asarray, jp), cfg, device="cpu")
 
 

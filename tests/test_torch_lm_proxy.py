@@ -39,6 +39,8 @@ from repro_torch.kernels import ops, ref
 from repro_torch.models import model as tmodel
 from repro_torch.models.config import ModelConfig
 from repro_torch.train.train_step import make_select_step
+from torch_lm_checks import ref_init  # noqa: E402
+import torch_threads  # noqa: F401,E402 — one intra-op thread a worker
 
 SHAPES = [  # (T, D, V, valid_v)
     (8, 8, 16, None),     # block-aligned
@@ -215,7 +217,7 @@ SMALL = dict(
 
 def _model(seed=0):
     jcfg, cfg = JModelConfig(**SMALL), ModelConfig(**SMALL)
-    jp = jmodel.init_params(jax.random.PRNGKey(seed), jcfg)
+    jp = ref_init(jcfg, seed)
     tp = convert.model_params_from_reference(jax.tree.map(np.asarray, jp), cfg, device="cpu")
     rng = np.random.default_rng(seed)
     batch = {"tokens": rng.integers(0, 250, (3, 16)).astype(np.int32),

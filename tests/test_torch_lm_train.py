@@ -32,6 +32,8 @@ from repro_torch.models import model as tmodel
 from repro_torch.models.config import ModelConfig
 from repro_torch.optim import optimizers as topt
 from repro_torch.train.train_step import make_train_step
+from torch_lm_checks import ref_init  # noqa: E402
+import torch_threads  # noqa: F401,E402 — one intra-op thread a worker
 
 SMALL = dict(
     name="tiny-qwen3", family="dense", n_layers=2, d_model=64, n_heads=4,
@@ -105,7 +107,7 @@ def test_train_steps_give_the_reference_losses(mode, microbatches, monkeypatch):
         monkeypatch.setattr(jmodel, "COMPUTE_DTYPE", jnp.float32)
         monkeypatch.setattr(tmodel, "COMPUTE_DTYPE", torch.float32)
     jcfg, cfg = JModelConfig(**SMALL), ModelConfig(**SMALL)
-    jp = jmodel.init_params(jax.random.PRNGKey(0), jcfg)
+    jp = ref_init(jcfg, 0)
     tp = convert.model_params_from_reference(jax.tree.map(np.asarray, jp), cfg, device="cpu")
     sched = (jopt.warmup_cosine(2e-3, 2, 6), topt.warmup_cosine(2e-3, 2, 6))
     jstep = jax.jit(jmake_train_step(jcfg, jopt.adamw(sched[0]), microbatches=microbatches))

@@ -43,6 +43,8 @@ from repro_torch.optim import adamw, constant
 from repro_torch.optim.optimizers import OptState
 from repro_torch.train import Trainer, TrainerConfig
 from repro_torch.train.train_step import make_select_step
+from torch_lm_checks import ref_init  # noqa: E402
+import torch_threads  # noqa: F401,E402 — one intra-op thread a worker
 
 SMALL = dict(
     name="tiny", family="dense", n_layers=2, d_model=32, n_heads=2,
@@ -155,7 +157,7 @@ def test_extractor_matches_reference_and_per_batch(monkeypatch):
     monkeypatch.setattr(jmodel, "COMPUTE_DTYPE", jnp.float32)
     monkeypatch.setattr(tmodel, "COMPUTE_DTYPE", torch.float32)
     jcfg = JModelConfig(**SMALL)
-    jp = jmodel.init_params(jax.random.PRNGKey(0), jcfg)
+    jp = ref_init(jcfg, 0)
     tp = convert.model_params_from_reference(jax.tree.map(np.asarray, jp), CFG, device="cpu")
     pool = np.arange(0, 40, 3)[:13]  # 13 rows: a wrapped tail batch
     jx = JProxyExtractor(jmake_select_step(jcfg, "einsum"),
@@ -211,7 +213,7 @@ def test_trainer_matches_reference_trainer(monkeypatch):
     monkeypatch.setattr(jmodel, "COMPUTE_DTYPE", jnp.float32)
     monkeypatch.setattr(tmodel, "COMPUTE_DTYPE", torch.float32)
     jcfg = JModelConfig(**SMALL)
-    jp = jmodel.init_params(jax.random.PRNGKey(0), jcfg)
+    jp = ref_init(jcfg, 0)
     tp = convert.model_params_from_reference(jax.tree.map(np.asarray, jp), CFG, device="cpu")
     jt = JTrainer(
         jcfg,
@@ -376,7 +378,7 @@ def test_streaming_first_drain_matches_reference_trainer(monkeypatch):
     monkeypatch.setattr(jmodel, "COMPUTE_DTYPE", jnp.float32)
     monkeypatch.setattr(tmodel, "COMPUTE_DTYPE", torch.float32)
     jcfg = JModelConfig(**SMALL)
-    jp = jmodel.init_params(jax.random.PRNGKey(0), jcfg)
+    jp = ref_init(jcfg, 0)
     tp = convert.model_params_from_reference(jax.tree.map(np.asarray, jp), CFG, device="cpu")
     jds = GrowingStream(JTokenStream(n_docs=48, seq_len=24, vocab_size=128, n_topics=6), 24)
     jt = JTrainer(jcfg, JTrainerConfig(batch_size=8, select_every_epochs=1, refresh_mode="sync",

@@ -34,6 +34,8 @@ from repro_torch import convert
 from repro_torch.models import moe as tmoe
 from repro_torch.models.blocks import layer_params, moe_config
 from repro_torch.models.config import ModelConfig
+from torch_lm_checks import ref_init  # noqa: E402
+import torch_threads  # noqa: F401,E402 — one intra-op thread a worker
 
 BF16_ULP = 2.0**-7  # spacing of bf16 values in [1, 2)
 jmoe_ffn = jax.jit(jmoe.moe_ffn, static_argnums=1)  # one compile per config
@@ -49,7 +51,7 @@ def _pair(seed=0, **moe):
     fields = {**dict(name="tiny-moe", family="moe", n_layers=1, d_model=D, n_heads=4,
                      n_kv_heads=2, d_ff=48, vocab_size=64, n_experts=4, top_k=2), **moe}
     jcfg, cfg = JModelConfig(**fields), ModelConfig(**fields)
-    jp = jax.tree.map(np.asarray, jmodel.init_params(jax.random.PRNGKey(seed), jcfg))
+    jp = jax.tree.map(np.asarray, ref_init(jcfg, seed))
     tp = convert.model_params_from_reference(jp, cfg, device="cpu")
     jffn = {k: jnp.asarray(v[0]) for k, v in jp["stack"]["scanned"][0]["ffn"].items()}
     tffn = {k[len("ffn."):]: v for k, v in layer_params(tp, 0).items() if k.startswith("ffn.")}

@@ -43,6 +43,7 @@ from repro_torch.distributed.process_tree import (
 from repro_torch.distributed.tree_select import TreeTopology, tree_select_host
 from repro_torch.faults import FaultPlan, FaultSpec, clear, injected
 from repro_torch.launch.tree import _synthetic_pool, initialize_distributed
+import torch_threads  # noqa: F401,E402 — one intra-op thread a worker
 
 SRC = Path(__file__).resolve().parent.parent / "src"
 _PROC_TIMEOUT = 120

@@ -16,6 +16,7 @@ import torch
 
 from repro.models import recurrent as jrec
 from repro_torch.models import recurrent as trec
+import torch_threads  # noqa: F401,E402 — one intra-op thread a worker
 
 D, R, K = 24, 16, 4
 TOL = dict(rtol=1e-4, atol=1e-5)

@@ -23,6 +23,7 @@ from torch.utils.checkpoint import CheckpointPolicy
 from repro_torch.models import blocks
 from repro_torch.models import model as tmodel
 from repro_torch.models.config import ModelConfig
+import torch_threads  # noqa: F401,E402 — one intra-op thread a worker
 
 CFGS = {
     "dense": ModelConfig(name="t", family="dense", n_layers=2, d_model=32, n_heads=2,

@@ -27,6 +27,7 @@ from repro_torch.models import init_params, init_serve_state
 from repro_torch.models.config import validate_config
 from repro_torch.serve import greedy_generate, make_prefill_step, make_serve_step
 from test_torch_decode import ARCHS, _model
+import torch_threads  # noqa: F401,E402 — one intra-op thread a worker
 
 CPU = torch.device("cpu")
 

@@ -37,6 +37,7 @@ from repro_torch.data.synthetic import make_classification
 from repro_torch.distributed import tree_select as T
 from repro_torch.examples.quickstart import logistic, schedule_for
 from repro_torch.optim import ig_run, saga_run, svrg_run
+import torch_threads  # noqa: F401,E402 — one intra-op thread a worker
 
 REPO = Path(__file__).resolve().parent.parent
 LAM = 1e-5

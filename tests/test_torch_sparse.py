@@ -32,6 +32,7 @@ from repro_torch.core.engines import sparse as S
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import pairwise_l2 as kpw
 from repro_torch.kernels import topk_sim as ktk
+import torch_threads  # noqa: F401,E402 — one intra-op thread a worker
 
 EPS32 = float(np.finfo(np.float32).eps)
 

@@ -29,6 +29,7 @@ from repro_torch.core import engines as E
 from repro_torch.core.engines import streaming as S
 from repro_torch.kernels import fl_gains as kfl
 from repro_torch.kernels import ops, ref
+import torch_threads  # noqa: F401,E402 — one intra-op thread a worker
 
 EPS32 = float(np.finfo(np.float32).eps)
 

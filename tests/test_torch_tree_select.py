@@ -24,6 +24,7 @@ from repro_torch.core import engines as E
 from repro_torch.core.craig import CraigConfig, CraigSelector
 from repro_torch.distributed import tree_select as T
 from test_torch_distributed import ENGINES, cpu_mesh, hold_final, hold_stages, replay, root_of
+import torch_threads  # noqa: F401,E402 — one intra-op thread a worker
 
 
 def _pool(n, d, seed):

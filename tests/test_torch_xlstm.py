@@ -30,6 +30,7 @@ from repro_torch.models import model as tmodel
 from repro_torch.models import recurrent as trec
 from repro_torch.models.config import ModelConfig
 import torch_lm_checks as checks
+import torch_threads  # noqa: F401,E402 — one intra-op thread a worker
 
 D, H, HD = 16, 2, 8
 CPU = torch.device("cpu")

@@ -1,6 +1,7 @@
 """Whole-model checks of the port's LM against the JAX reference on the CPU,
 shared by ``test_torch_xlstm.py`` and ``test_torch_frontends.py``;
-``strict_jit`` also by ``test_torch_decode.py`` and ``test_torch_lm_configs.py``.
+``strict_jit`` also by ``test_torch_decode.py`` and ``test_torch_lm_configs.py``,
+``ref_init`` by every port test that builds reference LM weights.
 
 Same numpy batch into both packages, in the reference's
 ``train_batch_struct`` layout (``tokens`` or ``embeddings``, labels
@@ -48,9 +49,21 @@ class strict_jit:
         return self.compiled[key](*args)
 
 
+_JIT_INIT = jax.jit(jmodel.init_params, static_argnums=1)
+
+
+def ref_init(jcfg, seed=0):
+    """The reference's ``init_params(PRNGKey(seed), jcfg)`` compiled as one
+    program: bit for bit its op-by-op values (checked at each family's
+    smoke config and the depth tests' 38–48-layer stacks) in half the time
+    or less (recurrentgemma-9b's 38 smoke layers: 11.9 s op by op, 5.4 s
+    compiled, on one CPU core)."""
+    return _JIT_INIT(jax.random.PRNGKey(seed), jcfg)
+
+
 def pair(jcfg, cfg, seed=0):
     """Reference params and the port's, converted."""
-    jp = jmodel.init_params(jax.random.PRNGKey(seed), jcfg)
+    jp = ref_init(jcfg, seed)
     return jp, convert.model_params_from_reference(jax.tree.map(np.asarray, jp), cfg,
                                                    device="cpu")
 
