@@ -124,7 +124,25 @@ version:
      qwen3-1.7b at the largest batch the reckoning fits, and the
      qwen3-1.7b select step at 8 × 4,096 (``ce_proxy`` at (32,768, 2,048,
      151,936), held to its plain twin there);
- 14. the report: one JSON line per the six kernels, then the last line,
+ 14. slice 13's model parallelism (``distributed/sharding.py``,
+     ``annotate.py``, ``collectives.py``; the steps on DTensors): (a) the
+     reference's production meshes, every arch's train_4k, decode_32k and
+     select_pool probes on 16×16 and qwen3-1.7b's and dbrx-132b's
+     train_4k probes on 2×16×16, traced per device under a fake 256- or
+     512-rank group by two ``launch/dryrun.py --mesh`` subprocesses
+     started before phase 11; per cell the per-device argument and peak
+     bytes, collective bytes by kind and the roofline's three terms, each
+     train cell's parameter and optimizer bytes held to the reference's
+     placement (12 bytes an element) and each 16×16 train cell's
+     collective term to be non-zero; (b) a real (1, 1) ("data", "model")
+     mesh over NCCL in a group of one at qwen3-1.7b's full width and
+     depth: the AdamW train step, the select step (its ``ce_proxy``
+     launch on the device's tokens through the op's sharding rule,
+     counted, the kernel held to its plain twin) and decode steps on a
+     ``serve_state_specs`` cache, each held bit for bit to the step
+     without a mesh, s a step and peak bytes beside it.  No multi-card
+     run: NCCL puts no two ranks on one card;
+ 15. the report: one JSON line per the six kernels, then the last line,
      {"ok": true, "device": {...}}.
 
 Before phases 2–8, ``kernels`` compares ``topk_sim`` (both list routes:
@@ -137,6 +155,7 @@ Any failure raises and exits non-zero.  Run from the repository root:
 """
 from __future__ import annotations
 
+import atexit
 import dataclasses
 import json
 import math
@@ -388,6 +407,29 @@ LONG_FROM = 524_284
 DECODE_BATCHES = (128, 64, 32, 16, 8)
 DECODE_FILL = 0.9
 SELECT_BT = (8, 4096)
+# Phase 14 (a): the reference's production meshes, traced per device in
+# MESH_WORKERS ``launch/dryrun.py --mesh`` processes started before phase
+# 11 (host work alone, beside phases 11–13): every arch's train_4k,
+# decode_32k and select_pool probes on 16×16, qwen3-1.7b's and dbrx-132b's
+# train_4k probes on 2×16×16.  MESH_PARAMS: per-device parameter elements
+# of the reference's param_specs over its tree on 16×16 (and 2×16×16: pod
+# replicates), at 12 bytes an element (fp32 weight, AdamW m and v) the
+# train cells' parameter and optimizer bytes, held within STATE_TOL.
+MESH_WORKERS = 2
+MESH_CELLS = {"single": ("train_4k", "decode_32k", "select_pool"), "multi": ("train_4k",)}
+MESH_MULTI_ARCHS = ("qwen3-1.7b", "dbrx-132b")
+MESH_PARAMS = {"qwen3-1.7b": 14.9e6, "qwen2-7b": 78.2e6, "nemotron-4-15b": 85.0e6,
+               "moonshot-v1-16b-a3b": 113.4e6, "dbrx-132b": 544.3e6,
+               "recurrentgemma-9b": 93.8e6}
+STATE_TOL = 0.01
+# Phase 14 (b): a real world-1 mesh over NCCL, (1, 1) ("data", "model"),
+# qwen3-1.7b at full width and depth on batches of MESH_BT; decode over
+# MESH_DECODE_STEPS tokens of a MESH_BT[1]-slot cache.  Bit for bit the
+# unsharded steps; an op whose DTensor form differs would be named and
+# held within WORLD_ONE_TOL relative.
+MESH_BT = (8, 512)
+MESH_DECODE_STEPS = 4
+WORLD_ONE_TOL = 1e-6
 
 
 def log(msg: str) -> None:
@@ -3143,6 +3185,303 @@ def dryrun_report(torch, card, procs, rows: list) -> dict:
             "ce_err": max([r["ce_err"] for r in real if "ce_err" in r] or [0.0])}
 
 
+def start_mesh_sweep() -> list:
+    """Phase 14 (a), started before phase 11: MESH_WORKERS ``launch/dryrun.py
+    --mesh`` processes (archs dealt round robin) tracing MESH_CELLS' p1 and
+    p2 probes per device under a fake 256- or 512-rank group, on fake
+    tensors of the card's device type.  Returns [(Popen, log path)]."""
+    import shlex
+
+    from repro_torch.configs import ARCHS
+
+    archs = sorted(ARCHS)
+    DRYRUN_DIR.mkdir(parents=True, exist_ok=True)
+    procs = []
+    for w in range(MESH_WORKERS):
+        runs = [["--mesh", "single", "--arch", *archs[w::MESH_WORKERS],
+                 "--shape", *MESH_CELLS["single"]]]
+        multi = MESH_MULTI_ARCHS[w::MESH_WORKERS]
+        if multi:
+            runs.append(["--mesh", "multi", "--arch", *multi, "--shape", *MESH_CELLS["multi"]])
+        base = [sys.executable, "-m", "repro_torch.launch.dryrun", "--device", "cuda",
+                "--out", str(DRYRUN_DIR), "--force", "--probes-only"]
+        cmd = "; ".join(f"{shlex.join(base + r)} || rc=1" for r in runs)
+        path = DRYRUN_DIR / f"mesh{w}.log"
+        script = f"rc=0; time {{ {cmd}; }}; exit $rc"
+        with open(path, "w") as out:
+            procs.append((subprocess.Popen(
+                ["bash", "-c", script], stdout=out, stderr=subprocess.STDOUT,
+                env=dict(os.environ, PYTHONPATH=str(ROOT / "src")), start_new_session=True),
+                path))
+    return procs
+
+
+def placed_elements(cfg, mesh_kind: str) -> int:
+    """Per-device parameter elements of ``cfg`` under ``param_specs`` on a
+    production mesh, from the shapes and the mesh's sizes alone."""
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch.mesh import PRODUCTION_MESHES
+    from repro_torch.models import param_shapes
+
+    shape, names = PRODUCTION_MESHES[mesh_kind]
+    sizes = dict(zip(names, shape))
+    stand_in = dataclasses.make_dataclass("StandIn", ["axis_names", "shape"])(names, sizes)
+    shapes = param_shapes(cfg)
+    total = 0
+    for k, spec in shd.param_specs(shapes, stand_in).items():
+        n = math.prod(shapes[k])
+        for a in spec:
+            for g in (a if isinstance(a, tuple) else (a,) if a else ()):
+                n //= sizes[g]
+        total += n
+    return total
+
+
+def mesh_report(torch, card, procs) -> dict:
+    """Phase 14 (a)'s report: waits for the mesh sweep, then per cell the
+    per-device argument and peak bytes, collective bytes by kind and the
+    roofline's three terms (``roofline.analyze_cell``, the probes
+    extrapolated); raises unless every cell traced, each train cell's
+    parameter and optimizer bytes (the full depth's, as placed) are 12
+    bytes a MESH_PARAMS element within STATE_TOL (and the placement
+    arithmetic's exactly), and every 16×16 train cell has a collective
+    term."""
+    from repro_torch.configs import ARCHS, get_config
+    from repro_torch.roofline import MESH_TAGS, analyze_cell
+
+    for proc, path in procs:
+        rc = proc.wait(timeout=900)
+        tail = path.read_text().strip().splitlines()
+        log(f"[14] (a) sweep {path.name}: rc {rc}; {' | '.join(tail[-3:])}")
+        if rc != 0:
+            raise AssertionError(f"mesh sweep {path} exited {rc}: {' | '.join(tail[-8:])}")
+    walls, problems, cells = [], [], 0
+    for mesh_kind, shapes in MESH_CELLS.items():
+        tag = MESH_TAGS[mesh_kind]
+        for arch in (sorted(ARCHS) if mesh_kind == "single" else MESH_MULTI_ARCHS):
+            cfg = get_config(arch)
+            for shape in shapes:
+                recs = []
+                for probe in (1, 2):
+                    path = DRYRUN_DIR / f"{arch}__{shape}__{tag}__p{probe}.json"
+                    rec = json.loads(path.read_text()) if path.exists() else {"status": "missing"}
+                    if rec["status"] != "ok":
+                        problems.append((arch, shape, tag, probe, rec["status"],
+                                         rec.get("error", "")[:200]))
+                        continue
+                    walls.append(rec["wall_s"])
+                    recs.append(rec)
+                if len(recs) < 2:
+                    continue
+                c = analyze_cell(str(DRYRUN_DIR), arch, shape, mesh_kind)
+                periods = cfg.n_layers / len(cfg.block_pattern)
+                kinds = {k: recs[0]["collectives"].get(k, {"bytes": 0})["bytes"]
+                         + (periods - 1) * (recs[1]["collectives"].get(k, {"bytes": 0})["bytes"]
+                                            - recs[0]["collectives"].get(k, {"bytes": 0})["bytes"])
+                         for k in sorted(set(recs[0]["collectives"]) | set(recs[1]["collectives"]))}
+                mem = recs[0]["memory"]
+                state = mem["full_depth_state_size_in_bytes"]
+                log(f"[14] (a) {arch} {shape} {tag} ({c.step}): per device p1 arguments "
+                    f"{mem['argument_size_in_bytes'] / 1e9:.3f} GB, peak "
+                    f"{mem['peak_bytes'] / 1e9:.3f} GB; full depth {c.mem_gb:.2f} GiB "
+                    f"({'fits' if c.fits_hbm else 'does not fit'}), state {state / 1e9:.3f} GB; "
+                    f"collective GB {' '.join(f'{k} {v / 1e9:.3f}' for k, v in kinds.items())}; "
+                    f"compute {1e3 * c.t_compute:.3f} ms, memory {1e3 * c.t_memory:.3f} ms, "
+                    f"collective {1e3 * c.t_collective:.3f} ms: {c.dominant}")
+                cells += 1
+                if shape == "train_4k":
+                    placed = 12 * placed_elements(cfg, mesh_kind)
+                    if state != placed:
+                        problems.append((arch, shape, tag, "state", state, placed))
+                    if arch in MESH_PARAMS:
+                        want = 12 * MESH_PARAMS[arch]
+                        log(f"[14] (a) {arch} {tag} parameter and optimizer bytes "
+                            f"{state / 1e9:.4f} GB against {want / 1e9:.4f} GB: "
+                            f"{state / want - 1:+.4%}")
+                        if abs(state / want - 1) > STATE_TOL:
+                            problems.append((arch, shape, tag, "table", state, want))
+                    if mesh_kind == "single" and not c.t_collective > 0:
+                        problems.append((arch, shape, tag, "no collective term"))
+    if problems:
+        raise AssertionError(f"phase 14 (a): {problems}")
+    log(f"[14] (a) {cells} mesh cells, {len(walls)} artifacts traced in {sum(walls):.1f}s of "
+        f"host time; {card}")
+    return {"cells": cells}
+
+
+def world_one(torch, ops, card, dev) -> dict:
+    """Phase 14 (b): a real (1, 1) ("data", "model") DeviceMesh over NCCL
+    in a group of one, qwen3-1.7b at full width and depth.  The train step
+    (AdamW), the select step (its ``ce_proxy`` launches counted, the kernel
+    held to its plain twin) and MESH_DECODE_STEPS decode steps on a
+    ``serve_state_specs`` cache run on DTensors and are held to the same
+    steps without a mesh on the same inputs; s a step and peak bytes of
+    both are printed.  The group is destroyed at the end."""
+    import socket
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor, distribute_tensor
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.kernels import ce_proxy as kce
+    from repro_torch.models import init_serve_state
+    from repro_torch.optim import adamw, warmup_cosine
+    from repro_torch.serve.serve_step import make_serve_step
+    from repro_torch.train.train_step import make_select_step, make_train_step
+
+    cfg = get_config(LM_ARCH)
+    B, T = MESH_BT
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}", rank=0,
+                            world_size=1)
+    try:
+        mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
+
+        def place(tree, specs):
+            return {k: distribute_tensor(v, mesh, shd.to_placements(specs[k], mesh),
+                                         src_data_rank=None) for k, v in tree.items()}
+
+        def full(t):
+            return t.full_tensor() if isinstance(t, DTensor) else t
+
+        batch = {"tokens": seeded_tokens(torch, cfg, dev, B, T, 11).to(torch.int32),
+                 "labels": seeded_tokens(torch, cfg, dev, B, T, 12).to(torch.int32),
+                 "weights": torch.rand(B, device=dev,
+                                       generator=torch.Generator(device=dev).manual_seed(13))
+                 + 0.5}
+        out: dict = {}
+
+        def timed(fn):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            r = fn()
+            torch.cuda.synchronize()
+            return r, time.perf_counter() - t0, torch.cuda.max_memory_allocated() - base
+
+        # the train step, unsharded and on the mesh, each from the same seeded
+        # weights after a warm-up step of its own (cuBLAS handles, the
+        # allocator; on the mesh, sharding propagation's caches)
+        opt = adamw(warmup_cosine(3e-4, 2, 100))
+        step = make_train_step(cfg, opt)
+        db = place(batch, shd.batch_specs(mesh, batch))
+
+        def fresh(placed: bool):
+            params, _ = serve_params(torch, cfg, dev)
+            if placed:
+                params = place(params, shd.param_specs(params, mesh))
+            return params, opt.init(params)
+
+        ran = {}
+        for placed in (False, True):
+            b = db if placed else batch
+            params, state = fresh(placed)
+            step(params, state, b)
+            del params, state
+            torch.cuda.empty_cache()
+            params, state = fresh(placed)
+            (p, _, m), secs, peak = timed(lambda: step(params, state, b))
+            ran[placed] = (float(full(m["loss"])), secs, peak)
+            if not placed:
+                host = {k: v.cpu() for k, v in p.items()}
+            else:
+                p1 = p
+            del params, state, p, m
+            torch.cuda.empty_cache()
+        (loss0, s0, peak0), (loss1, s1, peak1) = ran[False], ran[True]
+        differ = [k for k in host if not torch.equal(full(p1[k]).cpu(), host[k])]
+        worst = max([float((full(p1[k]).cpu() - host[k]).abs().max()
+                           / (host[k].abs().max() + 1e-30)) for k in differ] or [0.0])
+        log(f"[14] (b) train step on (1, 1) over NCCL: loss {loss1:.6f} against {loss0:.6f} "
+            f"unsharded; {len(host) - len(differ)}/{len(host)} parameters bit for bit"
+            f"{'' if not differ else f', worst rel {worst:.3e} at {differ[:3]}'}; "
+            f"{s1:.3f} s and {peak1 / 1e9:.2f} GB a step against {s0:.3f} s and "
+            f"{peak0 / 1e9:.2f} GB unsharded; {card}")
+        if differ and (worst > WORLD_ONE_TOL or abs(loss1 - loss0) > WORLD_ONE_TOL * abs(loss0)):
+            raise AssertionError(f"(1, 1) train step off the unsharded one: {differ[:5]}, "
+                                 f"{worst}, loss {loss1} vs {loss0}")
+        out["train"] = {"bitwise": not differ and loss1 == loss0, "s": s1, "s_plain": s0,
+                        "peak": peak1, "peak_plain": peak0}
+        del p1, host
+        torch.cuda.empty_cache()
+
+        # the select step and decode share one set of weights (no update)
+        params, _ = serve_params(torch, cfg, dev)
+        dp = {k: DTensor.from_local(v, mesh, shd.to_placements(s, mesh), run_check=False)
+              for (k, v), s in zip(params.items(), shd.param_specs(params, mesh).values())}
+        sbatch = {k: batch[k] for k in ("tokens", "labels")}
+        sdb = place(sbatch, shd.batch_specs(mesh, sbatch))
+        select = make_select_step(cfg)
+        select(params, sbatch)  # warm-ups
+        select(dp, sdb)
+        f0, t_plain, pk_plain = timed(lambda: select(params, sbatch))
+        ops.LAUNCHES["ce_proxy"] = 0
+        f1, t_mesh, pk_mesh = timed(lambda: select(dp, sdb))
+        launches = ops.LAUNCHES["ce_proxy"]
+        f1 = full(f1)
+        if launches != 1:
+            raise AssertionError(f"(1, 1) select step launched ce_proxy {launches} times")
+        sel_bitwise = torch.equal(f1, f0)
+        sel_err = rel_err(torch, f1, f0)
+        # the kernel on this step's operands against its plain twin
+        from repro_torch.models import COMPUTE_DTYPE, forward, unembed_matrix
+
+        with torch.no_grad():
+            hidden, _ = forward(params, cfg, sbatch)
+        h = hidden.reshape(B * T, -1).to(COMPUTE_DTYPE)
+        w = unembed_matrix(params).to(COMPUTE_DTYPE)
+        y = sbatch["labels"].reshape(-1)
+        ce_err = float((kce.ce_proxy_cuda(h, w, y, cfg.vocab_size)
+                        - kce.ce_proxy_torch(h, w, y, cfg.vocab_size, torch.bfloat16)
+                        ).abs().max())
+        tol = ce_tol(w, "bfloat16")
+        del hidden, h, w
+        log(f"[14] (b) select step on (1, 1): {'bit for bit' if sel_bitwise else f'rel {sel_err:.3e}'}"
+            f" the unsharded one; {launches} ce_proxy launch (max |kernel − plain| {ce_err:.3e}, "
+            f"tol {tol:.3e}); {t_mesh:.3f} s and {pk_mesh / 1e9:.2f} GB against {t_plain:.3f} s "
+            f"and {pk_plain / 1e9:.2f} GB unsharded")
+        if not sel_bitwise and sel_err > WORLD_ONE_TOL:
+            raise AssertionError(f"(1, 1) select step off the unsharded one: {sel_err}")
+        if not ce_err <= tol:
+            raise AssertionError(f"ce_proxy on the (1, 1) select operands: {ce_err} > {tol}")
+
+        # decode on a serve_state_specs cache
+        serve = make_serve_step(cfg)
+        sp = {k: DTensor.from_local(v, mesh, shd.to_placements(s, mesh), run_check=False)
+              for (k, v), s in zip(params.items(), shd.serve_param_specs(params, mesh).values())}
+        st0 = init_serve_state(cfg, B, T, dev)
+        st1 = init_serve_state(cfg, B, T, dev, mesh=mesh)
+        dec_bitwise, dec_err, times = True, 0.0, {"mesh": [], "plain": []}
+        for t in range(MESH_DECODE_STEPS):
+            tok = {"tokens": sbatch["tokens"][:, t:t + 1]}
+            (l0, st0), a, _ = timed(lambda: serve(params, st0, tok))
+            (l1, st1), b, _ = timed(lambda: serve(sp, st1, place(tok, shd.batch_specs(mesh, tok))))
+            times["plain"].append(a)
+            times["mesh"].append(b)
+            l1 = full(l1)
+            dec_bitwise &= torch.equal(l1, l0)
+            dec_err = max(dec_err, rel_err(torch, l1, l0))
+        ms = {k: 1e3 * statistics.median(v[1:]) for k, v in times.items()}
+        log(f"[14] (b) decode on a serve_state_specs cache (1, 1), {MESH_DECODE_STEPS} steps: "
+            f"{'bit for bit' if dec_bitwise else f'rel {dec_err:.3e}'} the unsharded ones; "
+            f"{ms['mesh']:.2f} ms a step against {ms['plain']:.2f} ms unsharded")
+        if not dec_bitwise and dec_err > WORLD_ONE_TOL:
+            raise AssertionError(f"(1, 1) decode off the unsharded one: {dec_err}")
+        out.update(select={"bitwise": sel_bitwise, "s": t_mesh, "s_plain": t_plain},
+                   decode={"bitwise": dec_bitwise, "ms": ms}, launches=launches, ce_err=ce_err)
+        del params, dp, sp, st0, st1
+        torch.cuda.empty_cache()
+        return out
+    finally:
+        dist.destroy_process_group()
+
+
 def main() -> None:
     import torch
 
@@ -3423,6 +3762,8 @@ def main() -> None:
     log(f"[10] phase total {time.perf_counter() - t0:.1f}s")
 
     # -- 11. distributed selection and the data-parallel extract -----------
+    mesh_sweep = start_mesh_sweep()  # phase 14 (a), host work beside 11–13
+    atexit.register(stop_sweep, mesh_sweep)  # whatever phase fails
     t0 = time.perf_counter()
     spread, spread_err = distributed_selection(torch, ops, card, dev, cov_feats)
     for kname in ("topk_sim", "pairwise_l2", "ce_proxy"):
@@ -3454,7 +3795,18 @@ def main() -> None:
         f"{dry['real_s']:.1f}s inside phase 12's cells, (a)'s report "
         f"{time.perf_counter() - t0:.1f}s after it)")
 
-    # -- 14. report ---------------------------------------------------------
+    # -- 14. model parallelism: the production meshes; a world-1 mesh ------
+    t0 = time.perf_counter()
+    try:
+        one = world_one(torch, ops, card, dev)
+        mesh_report(torch, card, mesh_sweep)
+    finally:
+        stop_sweep(mesh_sweep)
+    results["ce_proxy"]["launches"] += one["launches"]
+    max_err["ce_proxy"] = max(max_err["ce_proxy"], one["ce_err"])
+    log(f"[14] phase total {time.perf_counter() - t0:.1f}s")
+
+    # -- 15. report ---------------------------------------------------------
     replaces = {
         "fl_gains": "src/repro/kernels/fl_gains.py:106",
         "fl_gains_argmax": "src/repro/kernels/fl_gains.py:197",
@@ -3484,8 +3836,8 @@ def main() -> None:
         })
     if any(k["launches"] < 1 for k in kernels):
         raise AssertionError(f"a kernel of the path was never launched: {kernels}")
-    log(f"[14] ce_proxy fp32 at the main-path shape: {results['ce_proxy']['fp32']}")
-    log(f"[14] total {time.perf_counter() - t_start:.1f}s")
+    log(f"[15] ce_proxy fp32 at the main-path shape: {results['ce_proxy']['fp32']}")
+    log(f"[15] total {time.perf_counter() - t_start:.1f}s")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -82,6 +82,17 @@ committed kernel, in one process on one card:
                          fused kernel), alternated; and the activation
                          alone at the FFN's (4,096, 6,144) bf16, forward
                          and backward.
+  --ce-probe             one qwen3-1.7b training step (28 layers, 8 × 512
+                         tokens, AdamW, as --silu-probe) with the chunked
+                         CE as shipped for plain tensors (``model.
+                         _ce_chunk``: ATen's fused ``torch.logsumexp`` and
+                         a ``gather`` for the gold logit) and in the form
+                         it takes on a mesh (logsumexp op by op as
+                         ``model._LogSumExp``, the gold logit by a one-hot
+                         reduce), alternated: step times, peak bytes, and
+                         whether the two losses of one forward are equal;
+                         and one chunk alone at the main-path shape,
+                         forward and backward.
   --count-ops            on the CPU, no card needed: the dispatcher calls
                          of one sLSTM scan step and of one decode step of
                          each xLSTM layer kind (``torch.profiler``).
@@ -846,6 +857,92 @@ def silu_probe(torch, cs) -> None:
             f"(min {min(t):.4f}, max {max(t):.4f})")
 
 
+def _ce_composed(h_c, unembed, y_c, valid_v):
+    """The CE chunk as it runs on a mesh (logsumexp composed as
+    ``model._LogSumExp``, the gold logit by a one-hot reduce), on plain
+    tensors (the form ``--ce-probe`` times against)."""
+    import torch
+
+    from repro_torch.models import model
+
+    logits = (h_c.to(model.COMPUTE_DTYPE) @ unembed.to(model.COMPUTE_DTYPE).T).float()
+    V = logits.shape[-1]
+    vocab = torch.arange(V, device=logits.device)
+    if valid_v is not None and valid_v < V:
+        logits = logits + torch.where(vocab < valid_v, 0.0, -1e30)
+    hit = vocab == y_c.long()[..., None]
+    return model._LogSumExp.apply(logits) - torch.sum(torch.where(hit, logits, 0.0), dim=-1)
+
+
+def ce_probe(torch, cs) -> None:
+    import statistics
+    import time
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenStream, to_device
+    from repro_torch.models import init_params, model
+    from repro_torch.optim import adamw, warmup_cosine
+    from repro_torch.train.train_step import make_train_step
+
+    dev = torch.device("cuda")
+    cfg = get_config(cs.LM_ARCH)
+    shipped = model._ce_chunk
+    forms = {"torch.logsumexp, gather gold (shipped)": shipped,
+             "composed, one-hot gold (the mesh path's)": _ce_composed}
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    ds = TokenStream(n_docs=cs.LM_BATCH, seq_len=cs.LM_SEQ, vocab_size=cfg.vocab_size)
+    batch = to_device(ds.batch(np.arange(cs.LM_BATCH)), dev)
+    # one chunk alone at the main-path shape, forward and backward
+    chunk = cfg.logit_chunk if cs.LM_SEQ % cfg.logit_chunk == 0 else cs.LM_SEQ
+    gen = torch.Generator(device=dev).manual_seed(1)
+    h = torch.randn(cs.LM_BATCH, chunk, cfg.d_model, device=dev, generator=gen)
+    h = h.to(model.COMPUTE_DTYPE).requires_grad_(True)
+    y = batch["labels"][:, :chunk]
+    w = model.unembed_matrix(params)
+    for label, fn in forms.items():
+        fwd = lambda: fn(h, w, y, cfg.vocab_size)  # noqa: E731
+        g = torch.ones(cs.LM_BATCH, chunk, device=dev)
+        bwd = lambda: torch.autograd.grad(fn(h, w, y, cfg.vocab_size), h, g)  # noqa: E731
+        log(f"[ce] {label}, one chunk ({cs.LM_BATCH}, {chunk}) × V {w.shape[0]}: forward "
+            f"{cs.median_ms(torch, fwd, 20):.4f} ms, forward and backward "
+            f"{cs.median_ms(torch, bwd, 20):.4f} ms")
+    with torch.no_grad():
+        losses = {}
+        for label, fn in forms.items():
+            model._ce_chunk = fn
+            losses[label] = model.loss_fn(params, cfg, batch)[0]
+        model._ce_chunk = shipped
+    a, b = losses.values()
+    log(f"[ce] loss of one forward: {float(a)!r} and {float(b)!r}, "
+        f"equal: {bool(torch.equal(a, b))}")
+    opt = adamw(warmup_cosine(1e-4, 2, 100))
+    state = opt.init(params)
+    step = make_train_step(cfg, opt)
+    times = {k: [] for k in forms}
+    peaks = {k: [] for k in forms}
+    try:
+        for rnd in range(4):  # A, B, A, B
+            label = list(forms)[rnd % 2]
+            model._ce_chunk = forms[label]
+            torch.cuda.reset_peak_memory_stats()
+            for i in range(6):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                params, state, m = step(params, state, batch)
+                torch.cuda.synchronize()
+                if i:  # the first step of a round warms up
+                    times[label].append(time.perf_counter() - t0)
+            peaks[label].append(torch.cuda.max_memory_allocated() / 1e9)
+    finally:
+        model._ce_chunk = shipped
+    for label, t in times.items():
+        log(f"[ce] {cfg.name} ({cfg.n_layers} layers), a training step of {cs.LM_BATCH}×"
+            f"{cs.LM_SEQ} tokens with {label}: median {statistics.median(t):.4f} s of {len(t)} "
+            f"(min {min(t):.4f}, max {max(t):.4f}), peak {max(peaks[label]):.3f} GB")
+
+
 def count_ops(torch) -> None:
     """The PyTorch dispatcher calls (``aten::`` ops, nested ones included,
     counted by ``torch.profiler``) of one decode step of each xLSTM layer
@@ -891,6 +988,7 @@ def main() -> None:
     ap.add_argument("--serve-probe", nargs="*", metavar="ARCH")
     ap.add_argument("--count-ops", action="store_true")
     ap.add_argument("--silu-probe", action="store_true")
+    ap.add_argument("--ce-probe", action="store_true")
     args = ap.parse_args()
     import torch
 
@@ -928,6 +1026,8 @@ def main() -> None:
         serve_probe(torch, cs, args.serve_probe)
     if args.silu_probe:
         silu_probe(torch, cs)
+    if args.ce_probe:
+        ce_probe(torch, cs)
 
 
 if __name__ == "__main__":

@@ -23,6 +23,10 @@ turns what it reads into the port's parameters and optimizer state)::
   ``None`` leaf takes the saved tensor as it was written, on the CPU).
 * Extras (JSON) carry the data-pipeline cursor and the active coreset, so
   a restart resumes the exact stream.
+* Sharded trees: a DTensor leaf is saved whole (``full_tensor()``, a
+  gather every rank joins) and rank 0 writes.  ``restore(...,
+  shardings=)`` places each restored tensor by its layout, so a tree saved
+  on one mesh restores onto another (the reference's elastic restore).
 """
 from __future__ import annotations
 
@@ -36,6 +40,50 @@ import numpy as np
 import torch
 
 __all__ = ["CheckpointManager", "flatten", "unflatten"]
+
+
+def _gathered(v):
+    """A DTensor whole on every rank, else ``v``."""
+    from torch.distributed.tensor import DTensor
+
+    return v.full_tensor() if isinstance(v, DTensor) else v
+
+
+def _is_dtensor(v) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(v, DTensor)
+
+
+def _writer() -> bool:
+    """Rank 0 of an initialised process group writes; one process always."""
+    import torch.distributed as dist
+
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def _placed(tree: Any, template: Any, shardings: Any) -> Any:
+    """``tree`` with each tensor distributed by its layout: the
+    ``shardings`` leaf at its place, a ``(DeviceMesh, placements)`` pair,
+    or else the template leaf's own when that is a DTensor.  Every rank
+    holds the whole tensor (each read the file), so placing moves no data."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
+
+    if isinstance(tree, dict):
+        sh = shardings if isinstance(shardings, dict) else {}
+        return {k: _placed(v, template[k], sh.get(k)) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)) and not isinstance(tree, torch.Tensor):
+        sh = shardings if isinstance(shardings, (list, tuple)) else [None] * len(tree)
+        vals = [_placed(v, t, s) for v, t, s in zip(tree, template, sh)]
+        return type(tree)(*vals) if hasattr(tree, "_fields") else type(tree)(vals)
+    if not isinstance(tree, torch.Tensor):
+        return tree
+    if shardings is None and isinstance(template, DTensor):
+        shardings = (template.device_mesh, template.placements)
+    if shardings is None:
+        return tree
+    mesh, placements = shardings
+    return distribute_tensor(tree, mesh, placements, src_data_rank=None)
 
 
 def flatten(tree: Any, prefix: str = "") -> dict[str, Any]:
@@ -122,12 +170,21 @@ class CheckpointManager:
 
     def save(self, step: int, tree: Any, extras: dict | None = None,
              blocking: bool = True) -> None:
-        """Snapshot ``tree`` + JSON-able ``extras`` as step ``step``."""
+        """Snapshot ``tree`` + JSON-able ``extras`` as step ``step``.  A
+        tree with DTensor leaves is saved by every rank of their group
+        together: each leaf is gathered whole, rank 0 writes, and a
+        blocking save ends in a barrier, so any rank may restore next."""
+        flat = flatten(tree)
+        sharded = any(map(_is_dtensor, flat.values()))
         host = {
-            k: (v.detach().to("cpu", copy=True) if isinstance(v, torch.Tensor)
+            k: (_gathered(v).detach().to("cpu", copy=True) if isinstance(v, torch.Tensor)
                 else torch.tensor(v))
-            for k, v in flatten(tree).items()
+            for k, v in flat.items()
         }
+        if sharded and not _writer():
+            if blocking:
+                torch.distributed.barrier()
+            return
 
         def write():
             try:
@@ -159,6 +216,8 @@ class CheckpointManager:
         self.wait()
         if blocking:
             write()
+            if sharded:
+                torch.distributed.barrier()
             self.wait()
         else:
             self._thread = threading.Thread(target=write, daemon=True)
@@ -212,11 +271,19 @@ class CheckpointManager:
         optimizer state into the port's."""
         return _read_reference(self._step_dir(step))
 
-    def restore(self, template: Any, step: int | None = None) -> tuple[Any, dict]:
-        """Restore into ``template``'s structure → (tree, extras)."""
+    def restore(self, template: Any, step: int | None = None,
+                shardings: Any | None = None) -> tuple[Any, dict]:
+        """Restore into ``template``'s structure → (tree, extras).
+
+        ``shardings``: optional tree of ``(DeviceMesh, placements)`` pairs in
+        ``template``'s structure (``None`` or a missing key: unplaced).  Each
+        tensor is distributed by its pair, or, without one, as its template
+        leaf is when that is a DTensor — restoring onto another mesh than
+        the one that saved is the same call."""
         d = self._step_dir(step)
         with open(os.path.join(d, "manifest.json")) as f:
             manifest = json.load(f)
         flat = torch.load(os.path.join(d, "tensors.pt"), map_location="cpu",
                           weights_only=True)
-        return unflatten(template, flat), manifest.get("extras", {})
+        tree = _placed(unflatten(template, flat), template, shardings)
+        return tree, manifest.get("extras", {})

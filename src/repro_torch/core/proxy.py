@@ -10,6 +10,9 @@ from __future__ import annotations
 from typing import Callable
 
 import torch
+from torch.distributed.tensor import DTensor
+
+from repro_torch.distributed.annotate import unsharded
 
 __all__ = [
     "convex_feature_proxy",
@@ -91,7 +94,8 @@ def lm_unembed_input_proxy(
     if mask is None:
         mask = torch.ones((B, T), device=hidden.device)
     mask = mask.float()
-    w = unembed.to(compute_dtype)
+    # on a mesh the unembedding gathered over data for the products (ZeRO-3)
+    w = unsharded({"unembed": unembed})["unembed"].to(compute_dtype)
     pad_bias = None
     if valid_v is not None and valid_v < V:
         pad_bias = torch.where(torch.arange(V, device=hidden.device) < valid_v, 0.0, -1e30)
@@ -105,9 +109,15 @@ def lm_unembed_input_proxy(
         del logits
         y = y.long()
         ok = (y >= 0) & (y < V)  # one_hot of an out-of-range label is empty
-        delta.scatter_add_(-1, torch.where(ok, y, 0)[..., None], -ok.float()[..., None])
+        if isinstance(delta, DTensor):
+            # on a mesh the one-hot subtracted whole (a scatter along the
+            # vocab has no sharding strategy); x − 0 = x, so equal values
+            hit = torch.arange(V, device=hidden.device) == y[..., None]
+            delta = delta - torch.where(hit, ok.float()[..., None], 0.0)
+        else:
+            delta.scatter_add_(-1, torch.where(ok, y, 0)[..., None], -ok.float()[..., None])
         g = (delta.to(compute_dtype) @ w).float()
-        acc += torch.einsum("bcd,bc->bd", g, m)
+        acc = acc + torch.einsum("bcd,bc->bd", g, m)
     denom = torch.clamp(mask.sum(dim=1), min=1.0)
     return acc / denom[:, None]
 

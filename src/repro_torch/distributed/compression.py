@@ -4,9 +4,12 @@ Port of ``repro.distributed.compression``.  Two int8 quantization schemes:
 
 **Gradients** (``quantize_int8``/``dequantize_int8``/``compressed_psum``):
 per-block (256) absmax scaling with error feedback.  ``compressed_psum``
-takes the per-peer tensors of one reduction, in peer order, and returns
-what the reference's int8 ``all_gather`` reconstructs on every peer: the
-mean of the dequantized payloads.
+returns what the reference's int8 ``all_gather`` reconstructs on every
+peer, the mean of the dequantized payloads, in two forms: the
+reference's, a rank's tensor and a process group (the payloads and
+scales all-gathered, then summed in rank order), and the
+single-process one, the per-peer tensors of one reduction in peer order.
+Both sum the same way and agree bit for bit.
 
 **Candidate-feature matrices** (``quantize_rows_int8``/
 ``dequantize_rows_int8``): per-row absmax scaling of a 2-D (r, d) payload,
@@ -24,6 +27,8 @@ from __future__ import annotations
 from typing import Sequence
 
 import torch
+
+from repro_torch.distributed.collectives import group_size, resolve
 
 __all__ = [
     "quantize_int8",
@@ -92,31 +97,53 @@ def dequantize_rows_int8(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return q.float() * scale[:, None]
 
 
-def compressed_psum(xs: Sequence[torch.Tensor]) -> torch.Tensor:
-    """Mean over peers with an int8 payload on the wire.
-
-    ``xs`` holds one tensor per peer, in peer order (the single-controller
-    form of the reference's ``compressed_psum(x, axis_name)``).  Each peer's
-    tensor is quantized, the dequantized payloads are summed in peer order
-    on the first peer's device, and the sum is divided by the peer count.
-    """
-    if not xs:
-        raise ValueError("compressed_psum needs at least one peer")
-    shape = tuple(xs[0].shape)
-    dev = xs[0].device
+def _payload_mean(payloads, shape: tuple, dev) -> torch.Tensor:
+    """The dequantized (int8, scales) payloads summed in order on ``dev``,
+    cut to ``shape``, over their count."""
     total = None
-    for x in xs:
-        if tuple(x.shape) != shape:
-            raise ValueError(
-                f"compressed_psum: peer shapes differ ({tuple(x.shape)} vs {shape})"
-            )
-        q, s = quantize_int8(x)
+    for q, s in payloads:
         part = q.to(dev).float() * s.to(dev)[:, None]
         total = part if total is None else total + part
     size = 1
     for s in shape:
         size *= s
-    return total.reshape(-1)[:size].reshape(shape) / len(xs)
+    return total.reshape(-1)[:size].reshape(shape) / len(payloads)
+
+
+def compressed_psum(xs: torch.Tensor | Sequence[torch.Tensor], group=None) -> torch.Tensor:
+    """Mean over peers with an int8 payload on the wire.
+
+    Two forms:
+
+    * ``compressed_psum(x, group)``, the reference's: this rank's tensor
+      ``x`` and a process group (``distributed.collectives``' groups); the
+      int8 payloads and their scales are all-gathered and summed in rank
+      order, over the group size.  Every rank of the group calls it.
+    * ``compressed_psum(xs)``: ``xs`` holds one tensor per peer, in peer
+      order (one process driving every peer); each is quantized, and the
+      dequantized payloads are summed in peer order on the first peer's
+      device, over the peer count.
+    """
+    if isinstance(xs, torch.Tensor):
+        if group is None:
+            raise ValueError("compressed_psum of one tensor needs its group")
+        import torch.distributed._functional_collectives as funcol
+
+        n = group_size(group)
+        q, s = quantize_int8(xs)
+        g = resolve(group)
+        qs = funcol.wait_tensor(funcol.all_gather_tensor(q, 0, g)).reshape(n, *q.shape)
+        ss = funcol.wait_tensor(funcol.all_gather_tensor(s, 0, g)).reshape(n, *s.shape)
+        return _payload_mean(list(zip(qs, ss)), tuple(xs.shape), xs.device)
+    if not xs:
+        raise ValueError("compressed_psum needs at least one peer")
+    shape = tuple(xs[0].shape)
+    for x in xs:
+        if tuple(x.shape) != shape:
+            raise ValueError(
+                f"compressed_psum: peer shapes differ ({tuple(x.shape)} vs {shape})"
+            )
+    return _payload_mean([quantize_int8(x) for x in xs], shape, xs[0].device)
 
 
 def make_error_feedback(grad_like: dict):

@@ -20,11 +20,15 @@ allocates its output with ``torch.empty`` and counts each launch in
 D (a cluster of up to 8 CTAs × 256 columns to D = 2048, of up to 16 CTAs
 × 512 columns to D = 8,192, a SIMT kernel past that; see the source's
 header).  ``ce_proxy_torch`` is the same function in plain torch, chunked
-over tokens so the logits are (chunk, V) at a time.
+over tokens so the logits are (chunk, V) at a time.  On a mesh the custom
+op takes DTensors by its sharding rule: tokens split, the unembedding
+whole, one launch a device on its shard (the select step).
 """
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor.experimental import register_sharding
 from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import _build
@@ -58,7 +62,9 @@ def _check(hidden, unembed, labels, valid_v):
     V = unembed.shape[0]
     if min(T, D, V) < 1:
         raise ValueError(f"empty operand: T={T}, D={D}, V={V}")
-    if max(T * D, V * D) >= 2**31:
+    # a DTensor's tokens reach the kernel as each device's own rows
+    rows = hidden._local_tensor.shape[0] if isinstance(hidden, DTensor) else T
+    if max(rows * D, V * D) >= 2**31:
         raise ValueError("operands past 2**31 elements are not supported")
     if not 1 <= valid_v <= V:
         raise ValueError(f"valid_v={valid_v} outside [1, V={V}]")
@@ -91,6 +97,16 @@ def _ce_proxy_op(hidden: torch.Tensor, unembed: torch.Tensor, labels: torch.Tens
 @_ce_proxy_op.register_fake
 def _(hidden, unembed, labels, valid_v):
     return hidden.new_empty(hidden.shape, dtype=torch.float32)
+
+
+@register_sharding(torch.ops.repro_torch.ce_proxy.default)
+def _ce_proxy_sharding(hidden, unembed, labels, valid_v):
+    """DTensor placements the op takes, per mesh dim: tokens and labels
+    split on dim 0 with the unembedding whole, each device launching the
+    kernel on its own tokens; or everything replicated.  A token's proxy
+    depends on its own row alone, so no reduction follows."""
+    return [([Shard(0)], [Shard(0), Replicate(), Shard(0), None]),
+            ([Replicate()], [Replicate(), Replicate(), Replicate(), None])]
 
 
 @register_flop_formula(torch.ops.repro_torch.ce_proxy)

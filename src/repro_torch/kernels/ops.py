@@ -18,6 +18,7 @@ Nothing falls back: a kernel that fails to build or launch raises.
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor, Shard
 
 from repro_torch.kernels import _build
 from repro_torch.kernels import ce_proxy as _ce
@@ -167,11 +168,20 @@ def ce_proxy(
     if not 1 <= vv <= V:
         raise ValueError(f"valid_v={valid_v} outside [1, V={V}]")
     if resolve_impl(impl, hidden.device) == "torch":
+        if isinstance(hidden, DTensor):
+            # on a mesh as the kernel's sharding rule places it: each device
+            # its own tokens, the unembedding whole
+            return _token_local(
+                lambda h, w, y: _ce.ce_proxy_torch(h, w, y, vv, compute_dtype),
+                hidden, unembed, labels)
         return _ce.ce_proxy_torch(hidden, unembed, labels, vv, compute_dtype)
     w = unembed.to(compute_dtype).contiguous()
     h = hidden.to(compute_dtype).contiguous()
     y = labels.to(torch.int32).contiguous()
-    # one launch a slice of tokens below the kernel's 2**31-element operand
+    if isinstance(h, DTensor) and any(p == Shard(0) for p in h.placements):
+        # on a mesh the op's sharding rule gives each device its own tokens
+        return _ce.ce_proxy_cuda(h, w, y, vv)
+    # one launch a slice (of tokens every device holds, on a mesh) of tokens below the kernel's 2**31-element operand
     # limit (the reference's select_pool batch, 256 × 4,096 tokens of D =
     # 2,048, is 2**31): a token's proxy depends on its own row alone
     rows = token_slice(h.shape[0], h.shape[1])
@@ -179,6 +189,20 @@ def ce_proxy(
         return _ce.ce_proxy_cuda(h, w, y, vv)
     return torch.cat([_ce.ce_proxy_cuda(h[lo:lo + rows], w, y[lo:lo + rows], vv)
                       for lo in range(0, h.shape[0], rows)])
+
+
+def _token_local(fn, hidden, unembed, labels):
+    """``fn(hidden, unembed, labels)`` on each device's tokens (``local_map``):
+    hidden and labels keep their split of dim 0 and are whole otherwise,
+    the unembedding whole."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    rows = [p if p == Shard(0) else Replicate() for p in hidden.placements]
+    whole = [Replicate()] * len(rows)
+    return local_map(fn, out_placements=rows, in_placements=(rows, whole, rows),
+                     device_mesh=hidden.device_mesh, redistribute_inputs=True)(
+        hidden, unembed, labels)
 
 
 def token_slice(T: int, D: int) -> int:

@@ -9,11 +9,19 @@ of ``torch.device``s with named axes, and the distributed bodies
 extract in ``core.extract``) are explicit stages over its shards, each
 shard's work on that shard's device.  A mesh may name one device several
 times: a 4-shard mesh on one card is four entries of ``cuda:0``, as the
-reference's CPU tests force eight host devices.  A multi-process mesh (one
-rank per card over NCCL) is a later item (ROADMAP.md queue 1).
+reference's CPU tests force eight host devices.
+
+Model parallelism takes the other model: one process a rank, over
+``torch.distributed``.  :func:`make_production_mesh` is the reference's
+16×16 ``("data", "model")`` (or 2×16×16 ``("pod", "data", "model")``) mesh
+as a ``DeviceMesh`` over the initialised process group, whose placements
+``distributed/sharding.py`` computes; :func:`fake_world` initialises
+PyTorch's fake backend, under which one process holds a mesh of any
+size and traces a sharded step on fake tensors (``launch/dryrun.py``).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 
@@ -22,9 +30,14 @@ import torch
 
 from repro_torch._device import resolve_device
 
-__all__ = ["Mesh", "compat_mesh", "make_host_mesh", "make_production_mesh"]
+__all__ = ["Mesh", "compat_mesh", "make_host_mesh", "make_production_mesh", "fake_world",
+           "PRODUCTION_MESHES"]
 
-_MULTI_GPU_ITEM = "ROADMAP.md queue 1, 'Model parallelism and multi-GPU meshes'"
+# mesh kind → (shape, axis names), the reference's
+PRODUCTION_MESHES = {
+    "single": ((16, 16), ("data", "model")),
+    "multi": ((2, 16, 16), ("pod", "data", "model")),
+}
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -103,12 +116,49 @@ def compat_mesh(shape, axes, devices=None) -> Mesh:
     return Mesh(flat.reshape(shape), tuple(axes))
 
 
-def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
-    """The reference's v5e 16×16 (or 2×16×16) mesh has no counterpart yet."""
-    raise NotImplementedError(
-        "the production mesh spans 256 (or 512) accelerators; the port runs "
-        f"one process per mesh so far ({_MULTI_GPU_ITEM})"
-    )
+def make_production_mesh(*, multi_pod: bool = False, device_type: str = "cuda"):
+    """The reference's production mesh as a ``DeviceMesh`` of
+    ``device_type`` over the initialised process group: 16×16 ("data",
+    "model"), or 2×16×16 ("pod", "data", "model") with ``multi_pod``.
+
+    Raises:
+      RuntimeError: no process group is initialised.
+      ValueError: its world size is not the mesh's 256 (or 512) ranks.
+    """
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    shape, names = PRODUCTION_MESHES["multi" if multi_pod else "single"]
+    n = math.prod(shape)
+    if not dist.is_initialized():
+        raise RuntimeError("make_production_mesh needs an initialised process group "
+                           "(torch.distributed.init_process_group, or fake_world)")
+    world = dist.get_world_size()
+    if world != n:
+        raise ValueError(f"the {'×'.join(map(str, shape))} production mesh needs {n} ranks; "
+                         f"the process group has {world}")
+    return DeviceMesh(device_type, torch.arange(n).reshape(shape), mesh_dim_names=names)
+
+
+@contextlib.contextmanager
+def fake_world(world_size: int, device_type: str = "cuda"):
+    """A process group of ``world_size`` ranks on PyTorch's fake backend,
+    this process rank 0, for the block: a mesh of that size lives in one
+    process and a step on it traces with every collective's shapes, moving
+    no data.  ``device_type`` is checked as an entry point checks its
+    device (``cuda`` raises without a card).  The group is destroyed on
+    exit, error or not."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    resolve_device(device_type)
+    if dist.is_initialized():
+        raise RuntimeError("fake_world: a process group is already initialised")
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=world_size)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
 
 
 def make_host_mesh(device: str | torch.device = "cpu") -> Mesh:

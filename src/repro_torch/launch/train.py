@@ -21,13 +21,17 @@ Wired in as in the reference: CRAIG per-epoch coreset refresh
 accumulation, checkpoint/restart (``--ckpt``) and SIGTERM → emergency
 save.  The trainer runs on ``--device`` (default
 ``cuda``; ``cpu`` on request); on a card the refresh's proxies go through
-the ``ce_proxy`` kernel.  The reference's multi-host training mesh (model
-parallelism over several cards) is not ported (ROADMAP.md queue 1,
-'Model parallelism and multi-GPU meshes'); distributed *selection* is
-(``launch.tree``).  The reference's docstring names a ``--dry-run`` flag
+the ``ce_proxy`` kernel.  Like the reference's launcher, this one trains
+on one device: the reference's docstring names a multi-host mesh its
+launcher does not build.  Model parallelism is in the steps
+(``train.make_train_step`` on DTensor parameters placed by
+``distributed.sharding``; ``tests/torch_mesh_worker.py`` drives it over
+gloo), and distributed *selection* in ``launch.tree``.  The reference's
+docstring names a ``--dry-run`` flag
 its launcher does not have; its dry run is ``launch/dryrun.py``, and so is
 the port's (``python -m repro_torch.launch.dryrun``: every arch × shape
-cell of one H100 reckoned on fake tensors, ``roofline.py`` on top).
+cell reckoned on fake tensors, of one H100 or per device of the
+production meshes, ``roofline.py`` on top).
 """
 from __future__ import annotations
 

@@ -33,6 +33,7 @@ import math
 
 import torch
 
+from repro_torch.distributed.annotate import constrain, per_shard, pin_grad, whole_heads
 from repro_torch.models import loops
 from repro_torch.models.layers import apply_mrope, apply_rope, dense_init, rms_norm
 
@@ -79,14 +80,20 @@ def init_attention(cfg: AttentionConfig, generator, device) -> dict:
 def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """einsum('btd,dhk->bthk') as one matrix product in ``x.dtype``."""
     d, h, k = w.shape
-    return (x @ w.to(x.dtype).reshape(d, h * k)).unflatten(-1, (h, k))
+    # on a mesh the gradient reaches the split back into h·k as the forward
+    # left it, whatever split the heads take next
+    return pin_grad(whole_heads(x @ w.to(x.dtype).reshape(d, h * k), h).unflatten(-1, (h, k)))
 
 
 def _project_qkv(p: dict, cfg: AttentionConfig, x, positions):
     """x (B, T, D) → q (B, T, H, hd), k/v (B, T, KV, hd), RoPE (or
     M-RoPE) applied."""
     dtype = x.dtype
-    q, k, v = _proj(x, p["wq"]), _proj(x, p["wk"]), _proj(x, p["wv"])
+    q = constrain(_proj(x, p["wq"]), "batch", None, "tp", None)
+    # KV heads shard over model only when exactly divisible; otherwise they
+    # replicate (they are small), so the GQA repeat below stays local
+    k = constrain(_proj(x, p["wk"]), "batch", None, "tp", None, strict=True)
+    v = constrain(_proj(x, p["wv"]), "batch", None, "tp", None, strict=True)
     if cfg.qkv_bias:
         q = q + p["bq"].to(dtype)
         k = k + p["bk"].to(dtype)
@@ -176,14 +183,20 @@ def attention(p: dict, cfg: AttentionConfig, x: torch.Tensor, positions: torch.T
     B, T, _ = x.shape
     q, k, v = _project_qkv(p, cfg, x, positions)
     n_rep = cfg.n_heads // cfg.n_kv_heads
-    k, v = _repeat_kv(k, n_rep), _repeat_kv(v, n_rep)
+    # the repeat's backward merges the head split back into KV groups: on a
+    # mesh its gradient arrives as the repeat left the heads
+    k = constrain(pin_grad(_repeat_kv(k, n_rep)), "batch", None, "tp", None)
+    v = constrain(pin_grad(_repeat_kv(v, n_rep)), "batch", None, "tp", None)
     scale = _scale(cfg)
     if T > cfg.blockwise_threshold or (cfg.window is not None and T > 2 * cfg.window):
-        out = _blockwise_attention(q, k, v, scale, cfg)
+        out = per_shard(lambda q, k, v: _blockwise_attention(q, k, v, scale, cfg), q, k, v)
     else:
-        out = _dense_attention(q, k, v, scale, 0, cfg.window)
+        out = per_shard(lambda q, k, v: _dense_attention(q, k, v, scale, 0, cfg.window), q, k, v)
+    # on a mesh, heads split evenly or not at all into the flatten before
+    # the output projection (DTensor flattens no uneven split)
+    out = constrain(out, "batch", None, "tp", None, strict=True)
     H, hd, d = p["wo"].shape
-    return out.reshape(B, T, H * hd) @ p["wo"].to(x.dtype).reshape(H * hd, d)
+    return whole_heads(out.reshape(B, T, H * hd), H) @ p["wo"].to(x.dtype).reshape(H * hd, d)
 
 
 # ---------------------------------------------------------------------------
@@ -220,9 +233,15 @@ def decode_attention(p: dict, cfg: AttentionConfig, x: torch.Tensor, cache: dict
     # grouped-query attention without repeating the cache
     KV, hd = cfg.n_kv_heads, cfg.d_head
     G = cfg.n_heads // KV
-    q5 = q[:, 0].reshape(B, KV, G, hd)
+    # on a mesh the head dim goes over model before the heads split into
+    # (KV, G) groups, which a split of the heads may not follow
+    q1 = constrain(q[:, 0], "batch", None, "tp", strict=True)
+    q5 = constrain(q1.reshape(B, KV, G, hd), "batch", None, None, "tp", strict=True)
     k, v = cache["k"].to(q.dtype), cache["v"].to(q.dtype)
-    scores = torch.einsum("bkgh,bskh->bkgs", q5, k).float() * _scale(cfg)
+    # on a mesh the scores' partial sums over the split head dim reduce here
+    # (the step's one collective), so the value product's batch stays whole
+    scores = constrain(torch.einsum("bkgh,bskh->bkgs", q5, k), "batch", None, None, None)
+    scores = scores.float() * _scale(cfg)
     s_idx = torch.arange(size, device=x.device)
     if cfg.window is None:
         valid = s_idx <= pos  # S = max_len: no wrap
@@ -233,6 +252,9 @@ def decode_attention(p: dict, cfg: AttentionConfig, x: torch.Tensor, cache: dict
         valid = pos - torch.remainder(pos - s_idx, size) >= 0
     scores = torch.where(valid, scores, _NEG_INF)
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
-    out = torch.einsum("bkgs,bskh->bkgh", probs, v).reshape(B, 1, KV * G * hd)
+    # on a mesh the head dim is gathered before it merges with the heads (a
+    # split inner dim would merge into a strided split)
+    out = constrain(torch.einsum("bkgs,bskh->bkgh", probs, v), "batch", None, None, None)
+    out = whole_heads(out.reshape(B, 1, KV * G * hd), KV * G)
     H, hd_, d = p["wo"].shape
     return out @ p["wo"].to(x.dtype).reshape(H * hd_, d), cache

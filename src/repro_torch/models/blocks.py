@@ -42,6 +42,7 @@ import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from repro_torch.distributed.annotate import constrain, gate_halves, unsharded
 from repro_torch.models import recurrent as rec
 from repro_torch.models.attention import (AttentionConfig, attention, decode_attention,
                                           init_attention, init_kv_cache)
@@ -150,7 +151,12 @@ def init_stack(cfg: ModelConfig, generator, device) -> dict:
 
 def _ffn(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     act = activation_fn(cfg.activation)
-    h = x @ p["w_in"].to(x.dtype)
+    w_in = p["w_in"].to(x.dtype)
+    halves = gate_halves(w_in, x.numel() // x.shape[-1]) if cfg.gated_ffn else None
+    if halves is not None:  # on a mesh that splits the hidden dim
+        g, u = (constrain(x @ w, "batch", None, "tp") for w in halves)
+        return (act(g) * u) @ p["w_out"].to(x.dtype)
+    h = constrain(x @ w_in, "batch", None, "tp")
     if cfg.gated_ffn:
         g, u = torch.chunk(h, 2, dim=-1)
         h = act(g) * u
@@ -169,13 +175,23 @@ def _ffn_residual(p: dict, cfg: ModelConfig, x: torch.Tensor):
     h = norm_fn(cfg)(p["norm2.scale"], x, cfg.norm_eps)
     if cfg.n_experts:
         y, aux = moe_ffn(_sub(p, "ffn."), moe_config(cfg), h)
-        return x + y, aux
-    return x + _ffn(_sub(p, "ffn."), cfg, h), aux
+    else:
+        y = _ffn(_sub(p, "ffn."), cfg, h)
+    return x + _reduced(y), aux
+
+
+def _reduced(y: torch.Tensor) -> torch.Tensor:
+    """A sub-block's output pinned to whole rows before its residual add: on
+    a mesh the tensor-parallel partial sums reduce here (an all-reduce), not
+    into a sequence split that later reshapes cannot follow."""
+    return constrain(y, "batch", None, None)
 
 
 def _layer_forward(p: dict, cfg: ModelConfig, kind: str, x: torch.Tensor, positions):
     """Returns (x', aux): aux is the MoE load-balancing loss, 0 for a dense
     layer."""
+    p = unsharded(p)  # on a mesh, ZeRO-3: the layer's weights gathered here
+    x = constrain(x, "batch", None, None)
     h = norm_fn(cfg)(p["norm1.scale"], x, cfg.norm_eps)
     mp = _sub(p, "mixer.")
     if kind == "rglru":
@@ -186,7 +202,7 @@ def _layer_forward(p: dict, cfg: ModelConfig, kind: str, x: torch.Tensor, positi
         mixed = rec.slstm(mp, slstm_config(cfg), h)
     else:
         mixed = attention(mp, attn_config(cfg, kind), h, positions)
-    return _ffn_residual(p, cfg, x + mixed)
+    return _ffn_residual(p, cfg, x + _reduced(mixed))
 
 
 _SAVED_BY_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
@@ -246,6 +262,7 @@ def _init_layer_state(cfg: ModelConfig, kind: str, batch: int, max_len: int, dev
 
 def _layer_decode(p: dict, cfg: ModelConfig, kind: str, x: torch.Tensor, state: dict,
                   pos: int):
+    p = unsharded(p)
     h = norm_fn(cfg)(p["norm1.scale"], x, cfg.norm_eps)
     mp = _sub(p, "mixer.")
     if kind == "rglru":
@@ -256,7 +273,7 @@ def _layer_decode(p: dict, cfg: ModelConfig, kind: str, x: torch.Tensor, state: 
         mixed, state = rec.slstm_decode(mp, slstm_config(cfg), h, state)
     else:
         mixed, state = decode_attention(mp, attn_config(cfg, kind), h, state, pos)
-    x, _ = _ffn_residual(p, cfg, x + mixed)
+    x, _ = _ffn_residual(p, cfg, x + _reduced(mixed))
     return x, state
 
 

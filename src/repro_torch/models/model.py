@@ -52,9 +52,11 @@ taken per codebook; the loss and the proxies average over codebooks.
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch._device import resolve_device
+from repro_torch.distributed.annotate import constrain, unsharded
 from repro_torch.models.blocks import (init_decode_state, init_stack, norm_fn, stack_decode,
                                        stack_forward)
 from repro_torch.models.config import ModelConfig, validate_config
@@ -132,8 +134,34 @@ def unembed_matrix(params: dict) -> torch.Tensor:
 
 def _embed_input(params: dict, cfg: ModelConfig, batch: dict) -> torch.Tensor:
     if cfg.frontend == "tokens":
-        return params["embed"][batch["tokens"].long()].to(COMPUTE_DTYPE)
-    return batch["embeddings"].to(COMPUTE_DTYPE)  # the stub frontend's outputs
+        # on a mesh the table gathered over data for the lookup (ZeRO-3)
+        x = _lookup(unsharded({"embed": params["embed"]})["embed"], batch["tokens"].long())
+    else:
+        x = batch["embeddings"]  # the stub frontend's outputs
+    return constrain(x.to(COMPUTE_DTYPE), "batch", None, None)
+
+
+def _lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """``table[tokens]``.  On a mesh each device looks up its own tokens in
+    its slice of the table (``local_map``): the tokens keep their batch
+    split, the table its split of d_model where the tokens are whole, and
+    the table's gradient is a partial sum over the devices that split the
+    batch (some PyTorch releases have no sharding strategy for an index
+    into a split table)."""
+    if not isinstance(table, DTensor):
+        return table[tokens]
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    rows = [p if p == Shard(0) else Replicate() for p in tokens.placements]
+    cols = [Shard(1) if q == Shard(1) and p != Shard(0) else Replicate()
+            for p, q in zip(rows, table.placements)]
+    out = [Shard(0) if p == Shard(0) else (Shard(2) if q == Shard(1) else Replicate())
+           for p, q in zip(rows, cols)]
+    grads = [Partial() if p == Shard(0) else q for p, q in zip(rows, cols)]
+    return local_map(lambda t, i: t[i], out_placements=out, in_placements=(cols, rows),
+                     in_grad_placements=(grads, rows), device_mesh=table.device_mesh,
+                     redistribute_inputs=True)(table, tokens)
 
 
 def _positions(cfg: ModelConfig, batch: dict) -> torch.Tensor:
@@ -171,15 +199,49 @@ def forward(params: dict, cfg: ModelConfig, batch: dict):
     x = _embed_input(params, cfg, batch)
     x, aux = stack_forward(params, cfg, x, _positions(cfg, batch))
     x = norm_fn(cfg)(params["final_norm.scale"], x, cfg.norm_eps)
-    return x, aux
+    # on a mesh the heads take whole rows: a sequence split left by the last
+    # layer's reduction would reach the head's reshapes as a strided split
+    return constrain(x, "batch", None, None), aux
+
+
+class _LogSumExp(torch.autograd.Function):
+    """``torch.logsumexp`` over the last dim as ATen composes it (max, exp
+    of the difference, sum, log, plus the max) and its backward as ATen's
+    (g·exp(x − lse)), in ops a DTensor splits along the vocab: DTensor's
+    own logsumexp gathers the batch of a vocab-split operand."""
+
+    @staticmethod
+    def forward(ctx, x):
+        m = torch.amax(x, dim=-1)
+        lse = torch.log(torch.sum(torch.exp(x - m[..., None]), dim=-1)) + m
+        ctx.save_for_backward(x, lse)
+        return lse
+
+    @staticmethod
+    def backward(ctx, g):
+        x, lse = ctx.saved_tensors
+        return g[..., None] * torch.exp(x - lse[..., None])
 
 
 def _ce_chunk(h_c, unembed, y_c, valid_v):
+    unembed = unsharded({"unembed": unembed})["unembed"]
     logits = (h_c.to(COMPUTE_DTYPE) @ unembed.to(COMPUTE_DTYPE).T).float()
+    logits = constrain(logits, "batch", None, "tp")
     V = logits.shape[-1]
+    vocab = torch.arange(V, device=logits.device)
     if valid_v is not None and valid_v < V:
-        pad = torch.where(torch.arange(V, device=logits.device) < valid_v, 0.0, -1e30)
+        pad = torch.where(vocab < valid_v, 0.0, -1e30)
         logits = logits + pad
+    if isinstance(logits, DTensor):
+        # on a mesh, logsumexp in ops that split along the vocab, and the
+        # gold logit by a one-hot reduce, as the reference takes it: a
+        # gather along the model-split vocab has no sharding strategy.  One
+        # nonzero term a row, so the sum is the gold logit (none for a
+        # label outside the vocab).  Plain tensors keep ATen's fused
+        # logsumexp and a gather, to the same values: a chunk of them runs
+        # faster on the card (``chip_variants.py --ce-probe``).
+        hit = vocab == y_c.long()[..., None]
+        return _LogSumExp.apply(logits) - torch.sum(torch.where(hit, logits, 0.0), dim=-1)
     lse = torch.logsumexp(logits, dim=-1)
     ok = (y_c >= 0) & (y_c < V)  # a label outside the vocab has no gold logit
     gold = torch.gather(logits, -1, torch.where(ok, y_c, 0).long()[..., None])[..., 0]
@@ -262,6 +324,10 @@ def proxy_features_fused(
     def one(head, y):
         g = ops.ce_proxy(flat, head, y.reshape(B * T), valid_v=cfg.vocab_size,
                          compute_dtype=compute_dtype, impl=impl)
+        if isinstance(g, DTensor) and g.placements != flat.placements:
+            # the op's rule may split the tokens further than the rows were
+            # (over every mesh dim): back to the rows' split for the pooling
+            g = g.redistribute(g.device_mesh, flat.placements)
         return torch.mean(g.reshape(B, T, D), dim=1)
 
     return _codebook_mean([one(head, y) for head, y in
@@ -274,10 +340,23 @@ def proxy_features_fused(
 
 
 def init_serve_state(cfg: ModelConfig, batch: int, max_len: int,
-                     device: str | torch.device = "cuda") -> dict:
-    """Decode states for every layer and the position counter (0)."""
+                     device: str | torch.device = "cuda", mesh=None) -> dict:
+    """Decode states for every layer and the position counter (0).  With a
+    ``DeviceMesh`` each tensor is a DTensor placed by
+    ``distributed.sharding.serve_state_specs`` (the KV caches and the
+    recurrent states); ``pos`` stays a host integer."""
     dev = resolve_device(device)
-    return {"layers": init_decode_state(cfg, batch, max_len, dev), "pos": 0}
+    layers = init_decode_state(cfg, batch, max_len, dev)
+    if mesh is not None:
+        from torch.distributed.tensor import distribute_tensor
+
+        from repro_torch.distributed.sharding import serve_state_specs, to_placements
+
+        specs = serve_state_specs(layers, mesh, batch)
+        layers = [{k: distribute_tensor(t, mesh, to_placements(specs[i][k], mesh),
+                                        src_data_rank=None) for k, t in layer.items()}
+                  for i, layer in enumerate(layers)]
+    return {"layers": layers, "pos": 0}
 
 
 def _logits(params: dict, last: torch.Tensor) -> torch.Tensor:
@@ -285,6 +364,10 @@ def _logits(params: dict, last: torch.Tensor) -> torch.Tensor:
     codebook heads, from a COMPUTE_DTYPE product."""
     w = unembed_matrix(params).to(COMPUTE_DTYPE)
     h = last.to(COMPUTE_DTYPE)
+    if w.dim() == 3 and isinstance(h, DTensor):
+        # on a mesh one head at a time: the einsum would merge the codebook
+        # dim with the split vocab into a strided split
+        return torch.stack([h @ w[c].T for c in range(w.shape[0])], dim=1).float()
     if w.dim() == 3:
         return torch.einsum("bd,cvd->bcv", h, w).float()
     return (h @ w.T).float()

@@ -44,7 +44,10 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
+from repro_torch.distributed.annotate import (constrain, local_pointwise, per_shard, pin_grad,
+                                              whole_heads)
 from repro_torch.models import loops
 from repro_torch.models.layers import activation_fn, dense_init, rms_norm
 
@@ -86,9 +89,12 @@ def init_griffin_block(cfg: RGLRUConfig, generator, device) -> dict:
 
 def _gates(p: dict, u32: torch.Tensor):
     """a_t = exp(c·r_t·log σ(Λ)) and the input term √(1 − a_t²)·i_t·u_t."""
-    r_g = torch.sigmoid(u32 @ p["w_a"] + p["b_a"])
-    i_g = torch.sigmoid(u32 @ p["w_i"] + p["b_i"])
-    a = torch.exp(_C_RGLRU * r_g * F.logsigmoid(p["lam"]))
+    # on a mesh the products' partial sums reduced before the biases join
+    # (some PyTorch releases cannot turn a split bias into a partial one)
+    rows = ("batch",) + (None,) * (u32.dim() - 2) + ("tp",)
+    r_g = torch.sigmoid(constrain(u32 @ p["w_a"], *rows) + p["b_a"])
+    i_g = torch.sigmoid(constrain(u32 @ p["w_i"], *rows) + p["b_i"])
+    a = torch.exp(_C_RGLRU * r_g * _log_sigmoid(p["lam"]))
     b = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12)) * (i_g * u32)
     return a, b
 
@@ -108,6 +114,8 @@ def _rglru_scan(p: dict, u: torch.Tensor) -> torch.Tensor:
 def _causal_conv(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """Depthwise causal temporal conv of width K over x (B, T, R):
     y_t = Σ_k w_k·x_{t−K+1+k}, K unrolled adds in the reference's order."""
+    if isinstance(x, DTensor):
+        return _causal_conv_per_shard(w, x)
     K, T = w.shape[0], x.shape[1]
     pads = F.pad(x, (0, 0, K - 1, 0))
     out = torch.zeros_like(x)
@@ -116,13 +124,32 @@ def _causal_conv(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def _causal_conv_per_shard(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """The causal conv on a mesh, each device on its own rows and channels
+    (``local_map``; some PyTorch releases cannot place its padding): x
+    whole along T, the weight's channels split as x's, its gradient a
+    partial sum over the devices that split the batch."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    x = constrain(x, "batch", None, "tp")
+    rows = list(x.placements)
+    cols = [Shard(1) if p == Shard(2) else Replicate() for p in rows]
+    grads = [Partial() if p == Shard(0) else q for p, q in zip(rows, cols)]
+    return local_map(_causal_conv, out_placements=rows, in_placements=(cols, rows),
+                     in_grad_placements=(grads, rows), device_mesh=x.device_mesh,
+                     redistribute_inputs=True)(w, x)
+
+
 def griffin_block(p: dict, cfg: RGLRUConfig, x: torch.Tensor) -> torch.Tensor:
     """Griffin recurrent block over x (B, T, D): gate ⊙ RG-LRU(conv(proj(x)))
     → out projection, in ``x.dtype`` (the scan in fp32)."""
     dtype = x.dtype
     gate = _gelu(x @ p["w_gate"].to(dtype))
     u = _causal_conv(p["conv"].to(dtype), x @ p["w_x"].to(dtype))
-    h = _rglru_scan(p, u)
+    # on a mesh whole sequences into and out of the scan (its shifted
+    # slices may take a sequence split the out projection cannot flatten)
+    h = constrain(_rglru_scan(p, constrain(u, "batch", None, "tp")), "batch", None, "tp")
     return (gate * h) @ p["w_out"].to(dtype)
 
 
@@ -163,6 +190,11 @@ class MLSTMConfig:
     expand: float = 2.0
     chunk: int = 256
     conv_width: int = 4
+
+
+def _log_sigmoid(x: torch.Tensor) -> torch.Tensor:
+    # on a mesh shard by shard: log_sigmoid's backward has no sharding strategy
+    return local_pointwise(F.logsigmoid, x)
 
 
 def _fp32_rsqrt(d: int) -> float:
@@ -240,7 +272,7 @@ def _mlstm_chunk_parallel(q, k, v, log_i, log_f, chunk: int = 256) -> torch.Tens
 def _heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """einsum('...d,dhk->...hk') as one matrix product in ``x.dtype``."""
     di, h, k = w.shape
-    return (x @ w.to(x.dtype).reshape(di, h * k)).unflatten(-1, (h, k))
+    return whole_heads(x @ w.to(x.dtype).reshape(di, h * k), h).unflatten(-1, (h, k))
 
 
 def _mlstm_out(p: dict, h: torch.Tensor, inner_act: torch.Tensor, gate: torch.Tensor):
@@ -265,9 +297,18 @@ def mlstm(p: dict, cfg: MLSTMConfig, x: torch.Tensor) -> torch.Tensor:
     v = _heads(inner, p["wv"]).transpose(1, 2)
     gf = inner.float() @ p["w_if"] + p["b_if"]
     log_i, log_f = torch.chunk(gf, 2, dim=-1)  # (B, T, H) each
-    h = _mlstm_chunk_parallel(q.float(), k.float(), v.float(), log_i.transpose(1, 2),
-                              F.logsigmoid(log_f).transpose(1, 2), chunk=cfg.chunk)
-    h = h.transpose(1, 2).reshape(B, T, -1).to(dtype)
+    # on a mesh, whole sequences into and out of the chunks (B, H, T, d): a
+    # split the chunks' products may pick, or their gradients bring back,
+    # would reach the projections' reshapes
+    # — and each device runs the chunks on its own rows and heads: batched
+    # products over a batch and a head split merge them into one dim,
+    # which some PyTorch releases refuse and others split strided
+    q, k, v = (constrain(t.float(), "batch", "tp", None, None) for t in (q, k, v))
+    h = per_shard(lambda q, k, v, li, lf: _mlstm_chunk_parallel(q, k, v, li, lf,
+                                                                chunk=cfg.chunk),
+                  q, k, v, log_i.transpose(1, 2), _log_sigmoid(log_f).transpose(1, 2))
+    h = constrain(h, "batch", "tp", None, None)
+    h = whole_heads(h.transpose(1, 2).reshape(B, T, -1), cfg.n_heads).to(dtype)
     return _mlstm_out(p, h, inner_act, gate)
 
 
@@ -294,7 +335,7 @@ def mlstm_decode(p: dict, cfg: MLSTMConfig, x: torch.Tensor, state: dict):
     v = _heads(inner_c, p["wv"]).float()
     gf = inner_c.float() @ p["w_if"] + p["b_if"]
     log_i, log_f = torch.chunk(gf, 2, dim=-1)  # (B, H)
-    log_f = F.logsigmoid(log_f)
+    log_f = _log_sigmoid(log_f)
     m = state["m"]
     m_new = torch.maximum(log_f + m, log_i)
     i_w = torch.exp(log_i - m_new)
@@ -306,7 +347,9 @@ def mlstm_decode(p: dict, cfg: MLSTMConfig, x: torch.Tensor, state: dict):
     num = (q[..., None, :] @ c_new)[..., 0, :]
     den = (q * n_new).sum(dim=-1).abs()
     h = num / torch.maximum(den, torch.exp(-m_new))[..., None]
-    out = _mlstm_out(p, h.reshape(B, -1).to(dtype), inner_act, gate)
+    # on a mesh each head's output whole before the heads merge into rows
+    h = constrain(h, "batch", "tp", None).reshape(B, -1)
+    out = _mlstm_out(p, whole_heads(h, cfg.n_heads).to(dtype), inner_act, gate)
     return out[:, None], {"C": c_new, "n": n_new, "m": m_new, "conv": hist[:, 1:].float()}
 
 
@@ -345,10 +388,16 @@ def _slstm_step(p: dict, cfg: SLSTMConfig, state: dict, wx_t: torch.Tensor):
     H, d = cfg.n_heads, cfg.d_head
     c, n, h, m = state["c"], state["n"], state["h"], state["m"]
     rh = torch.einsum("bhk,ghkl->bghl", h, p["r_in"])  # (B, 4, H, d)
-    z_all = wx_t.reshape(B, 4, H, d) + rh + p["b"].reshape(1, 4, H, d)
-    i_t, f_t, z_t, o_t = z_all.unbind(1)
+    # on a mesh each gradient reaches these reshapes as their outputs were
+    # split (the heads' split it brings back cannot flatten into rows)
+    z_all = (pin_grad(wx_t.reshape(B, 4, H, d)) + rh
+             + pin_grad(p["b"].reshape(1, 4, H, d)))
+    # on a mesh the gate dim is made whole first (an unbind along a sharded
+    # dim has no sharding strategy), and each head's cell too (its state
+    # merges with the heads into (B, di) rows)
+    i_t, f_t, z_t, o_t = constrain(z_all, "batch", None, "tp", None).unbind(1)
     log_i = i_t.mean(dim=-1)  # scalar gates per head (B, H)
-    log_f = F.logsigmoid(f_t.mean(dim=-1))
+    log_f = _log_sigmoid(f_t.mean(dim=-1))
     m_new = torch.maximum(log_f + m, log_i)
     i_w = torch.exp(log_i - m_new)[..., None]
     f_w = torch.exp(log_f + m - m_new)[..., None]
@@ -356,6 +405,21 @@ def _slstm_step(p: dict, cfg: SLSTMConfig, state: dict, wx_t: torch.Tensor):
     n_new = f_w * n + i_w
     h_new = torch.sigmoid(o_t) * c_new / torch.clamp(n_new, min=1e-6)
     return {"c": c_new, "n": n_new, "h": h_new, "m": m_new}, h_new
+
+
+def _whole_recurrence(p: dict) -> dict:
+    """``p`` with the recurrent mixing ``r_in`` (4, H, d, d) and the gate
+    bias ``b`` whole on a mesh, gathered once for the layer's steps (16 MB
+    at xlstm-1.3b): their splits would reach the per-step product's
+    batched flatten and the bias's reshape, which some PyTorch releases
+    refuse."""
+    from torch.distributed.tensor import Replicate
+
+    if not isinstance(p["r_in"], DTensor):
+        return p
+    mesh = p["r_in"].device_mesh
+    return {**p, **{k: p[k].redistribute(mesh, [Replicate()] * mesh.ndim)
+                    for k in ("r_in", "b")}}
 
 
 def init_slstm_state(cfg: SLSTMConfig, batch: int, device) -> dict:
@@ -375,19 +439,23 @@ def slstm(p: dict, cfg: SLSTMConfig, x: torch.Tensor) -> torch.Tensor:
     ``x.dtype``, then T sequential fp32 steps."""
     dtype = x.dtype
     B, T, _ = x.shape
-    wx = (x @ p["w_in"].to(dtype)).float()  # (B, T, 4·di)
+    wx = whole_heads((x @ p["w_in"].to(dtype)).float(), 4)  # (B, T, 4·di): the 4 gates
+    p = _whole_recurrence(p)
     state = init_slstm_state(cfg, B, x.device)
     hs = []
     for t in loops.steps(T):
         state, h = _slstm_step(p, cfg, state, wx[:, t])
         hs.append(h)
-    h = loops.widen(torch.stack(hs, dim=1), 1, T).reshape(B, T, -1).to(dtype)
-    return _slstm_out(p, h)
+    h = loops.widen(torch.stack(hs, dim=1), 1, T).reshape(B, T, -1)
+    return _slstm_out(p, whole_heads(h, cfg.n_heads).to(dtype))
 
 
 def slstm_decode(p: dict, cfg: SLSTMConfig, x: torch.Tensor, state: dict):
     """One-token sLSTM step.  x (B, 1, D) → (out (B, 1, D), new state)."""
     dtype = x.dtype
-    wx = (x[:, 0] @ p["w_in"].to(dtype)).float()
-    state, h = _slstm_step(p, cfg, state, wx)
-    return _slstm_out(p, h.reshape(x.shape[0], -1).to(dtype))[:, None], state
+    wx = whole_heads((x[:, 0] @ p["w_in"].to(dtype)).float(), 4)
+    state, h = _slstm_step(_whole_recurrence(p), cfg, state, wx)
+    # on a mesh each head's cell whole before the heads merge into rows (the
+    # state keeps the layout serving gives it)
+    h = constrain(h, "batch", "tp", None).reshape(x.shape[0], -1)
+    return _slstm_out(p, whole_heads(h, cfg.n_heads).to(dtype))[:, None], state

@@ -1,4 +1,5 @@
-"""Roofline analysis over the dry-run artifacts of one H100.
+"""Roofline analysis over the dry-run artifacts: one H100, or one device
+of the reference's 16×16 and 2×16×16 meshes.
 
 Port of ``repro.roofline``.  Workflow: ``python -m
 repro_torch.launch.dryrun --all --probes`` writes the artifacts,
@@ -19,13 +20,21 @@ which is exact for the homogeneous layer stack (``tests/test_torch_roofline.py``
 holds it to a full trace) and carries embedding, head and optimizer
 costs in the p1 intercept.
 
-Roofline terms (one card, one step; published dense peaks by card name,
+Roofline terms (one device, one step; published dense peaks by card name,
 :data:`CARDS`):
 
     compute    = bf16 FLOPs / 989e12 + fp32 FLOPs / 67e12
                  [tensor cores; CUDA cores — the port runs with TF32 off]
     memory     = bytes accessed / 3.35e12        [HBM3]
     collective = Σ collective bytes / 450e9      [NVLink, a direction; 0 on one card]
+
+On a mesh (``--mesh 16x16`` or ``2x16x16``, or ``single``/``multi``) every
+count is one device's and the collective bytes are the output bytes of
+the collectives it issues (``launch/dryrun.py``'s census).  The collective
+term prices them all at NVLink's rate, though a 16-wide ``model`` axis
+spans two 8-card NVLink domains of H100 nodes and the ``data`` and ``pod``
+axes cross nodes over the network: it is a lower bound, not a model of
+the fabric.
 
 With every FLOP in bf16 the compute term is the reference's formula.
 MODEL_FLOPS = 6·N·D (train) or 2·N·D (inference), N = active params.
@@ -52,10 +61,13 @@ CARD = "NVIDIA H100 80GB HBM3"
 # (fp32 FLOP/s, bf16 FLOP/s, bytes/s) by card name, for the kernels' bounds
 PEAKS = {k: (v["fp32"], v["bf16"], v["hbm"]) for k, v in CARDS.items()}
 MESH = "h100x1"
+# --mesh → the artifacts' mesh tag (the reference's names, and the tags)
+MESH_TAGS = {MESH: MESH, "single": "16x16", "multi": "2x16x16", "16x16": "16x16",
+             "2x16x16": "2x16x16"}
 
 ARTIFACT_DIR = os.path.join(os.path.dirname(__file__), "../../artifacts/dryrun_torch")
 
-__all__ = ["CARDS", "CARD", "PEAKS", "MESH", "CellRoofline", "roofline_terms", "analyze_cell",
+__all__ = ["CARDS", "CARD", "PEAKS", "MESH", "MESH_TAGS", "CellRoofline", "roofline_terms", "analyze_cell",
            "analyze_all", "to_markdown", "compare_markdown", "main"]
 
 
@@ -89,7 +101,7 @@ class CellRoofline:
 
 def _load(out_dir: str, arch: str, shape: str, mesh: str, probe: int = 0):
     suffix = f"__p{probe}" if probe else ""
-    path = os.path.join(out_dir, f"{arch}__{shape}__{mesh}{suffix}.json")
+    path = os.path.join(out_dir, f"{arch}__{shape}__{MESH_TAGS[mesh]}{suffix}.json")
     if not os.path.exists(path):
         return None
     with open(path) as f:
@@ -155,7 +167,7 @@ def analyze_cell(out_dir: str, arch: str, shape: str, mesh: str = MESH) -> CellR
     return CellRoofline(
         arch=arch,
         shape=shape,
-        mesh=mesh,
+        mesh=MESH_TAGS[mesh],
         step=base.get("meta", {}).get("step", "?"),
         flops=flops,
         flops_bf16=flops16,
@@ -192,7 +204,8 @@ def _mem_bytes(rec: dict) -> float:
 def _note(dominant: str, terms: dict, useful: float, rec: dict, fp32_share: float) -> str:
     shape = rec["shape"]
     if dominant == "collective":
-        return "collective bound — reshard (one card has none; a multi-card mesh is item 5)"
+        return ("collective bound — the device's collectives outlast its compute and HBM "
+                "traffic at NVLink's rate; reshard, or overlap them")
     if dominant == "memory":
         if "decode" in shape or "500k" in shape:
             return ("cache/weight streaming bound (expected for decode) — raise the batch or "
@@ -211,7 +224,8 @@ def _note(dominant: str, terms: dict, useful: float, rec: dict, fp32_share: floa
 def analyze_all(out_dir: str | None = None, mesh: str = MESH) -> list[CellRoofline]:
     out_dir = out_dir or os.path.normpath(ARTIFACT_DIR)
     keys = set()
-    for path in glob.glob(os.path.join(out_dir, f"*__{mesh}*.json")):
+    for path in glob.glob(os.path.join(out_dir, f"*__{MESH_TAGS[mesh]}.json")) + glob.glob(
+            os.path.join(out_dir, f"*__{MESH_TAGS[mesh]}__p*.json")):
         base = os.path.basename(path)[:-len(".json")]
         arch, shape = base.split("__")[:2]
         keys.add((arch, shape))
@@ -267,7 +281,7 @@ def compare_markdown(base_dir: str, opt_dir: str, mesh: str = MESH) -> str:
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default=os.path.normpath(ARTIFACT_DIR))
-    ap.add_argument("--mesh", default=MESH)
+    ap.add_argument("--mesh", default=MESH, choices=sorted(MESH_TAGS))
     ap.add_argument("--markdown", action="store_true")
     ap.add_argument("--compare", default=None,
                     help="baseline artifact dir — emit baseline-vs-optimized markdown")

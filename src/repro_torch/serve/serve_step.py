@@ -16,6 +16,12 @@ The serving shapes of ``configs/shapes.py`` (``prefill_32k``,
 ``decode_32k`` at batch 128, ``long_500k`` from a 524,288-deep state) are
 reckoned — memory, FLOPs, bytes, roofline bound — on fake tensors by
 ``launch/dryrun.py``, whether or not one card holds them.
+
+On a mesh both steps run on DTensor parameters placed by
+``distributed.sharding.serve_param_specs`` (tensor parallelism, no
+ZeRO-3) and a state whose tensors ``serve_state_specs`` places (the KV
+caches and recurrent states; ``pos`` stays a host integer), in
+``train.train_step.on_mesh``'s context.
 """
 from __future__ import annotations
 
@@ -25,13 +31,15 @@ import torch
 
 from repro_torch.models import decode_step, init_serve_state, prefill
 from repro_torch.models.config import ModelConfig
+from repro_torch.train.train_step import on_mesh
 
 __all__ = ["make_prefill_step", "make_serve_step", "greedy_generate"]
 
 
 def make_prefill_step(cfg: ModelConfig) -> Callable:
     def prefill_step(params, batch):
-        _, logits = prefill(params, cfg, batch)
+        with on_mesh(params):
+            _, logits = prefill(params, cfg, batch)
         return logits
 
     return prefill_step
@@ -39,7 +47,8 @@ def make_prefill_step(cfg: ModelConfig) -> Callable:
 
 def make_serve_step(cfg: ModelConfig) -> Callable:
     def serve_step(params, state, batch):
-        return decode_step(params, cfg, state, batch)
+        with on_mesh(params):
+            return decode_step(params, cfg, state, batch)
 
     return serve_step
 

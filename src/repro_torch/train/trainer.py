@@ -400,8 +400,11 @@ class Trainer:
                                 "doc_ids": self._stream_doc_ids.tolist()}
         self.ckpt.save(self.step, tree, extras, blocking=blocking)
 
-    def restore_or_init(self) -> bool:
-        """Restore the latest checkpoint if there is one; True if restored."""
+    def restore_or_init(self, shardings: Any | None = None) -> bool:
+        """Restore the latest checkpoint if there is one; True if restored.
+        ``shardings`` places the restored parameters and optimizer state
+        (``CheckpointManager.restore``): a tree ``{"params": ..., "opt":
+        ...}`` of ``(DeviceMesh, placements)`` pairs, onto any mesh."""
         if self.ckpt is None or self.ckpt.latest_step() is None:
             return False
         template = {"params": self.params, "opt": self.opt_state}
@@ -413,7 +416,7 @@ class Trainer:
                 "pool": None,
                 "states": {k: dict.fromkeys(StreamingState._fields) for k in keys},
             }
-        tree, extras = self.ckpt.restore(template)
+        tree, extras = self.ckpt.restore(template, shardings=shardings)
         self.params = tree["params"]
         self.opt_state = tree["opt"]
         self.step = int(extras["step"])

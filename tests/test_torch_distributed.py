@@ -366,8 +366,8 @@ def test_meshes():
     m = compat_mesh((2, 2), ("a", "b"), devices=["cpu", "cpu"])
     assert m.size == 4 and m.flat_devices() == [CPU] * 4
     assert make_host_mesh().shape == {"data": 1, "model": 1}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_production_mesh()
+    with pytest.raises(RuntimeError, match="initialised process group"):
+        make_production_mesh()  # a DeviceMesh over the process group: none here
     with pytest.raises(ValueError, match="no axis"):
         m.axis_devices("c")
     with pytest.raises(ValueError, match="do not tile"):

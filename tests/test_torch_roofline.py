@@ -91,3 +91,27 @@ def test_no_artifacts_give_an_empty_report(tmp_path, capsys):
     out = capsys.readouterr().out
     assert out.startswith("| arch | shape | step |") and out.strip().count("\n") == 1
     assert roofline.PEAKS[roofline.CARD] == (67e12, 989e12, 3.35e12)
+
+
+def test_mesh_artifacts_are_read_per_device(tmp_path, monkeypatch):
+    """The 16×16 artifacts (``--mesh single``), every count one device's: the
+    port's report is the reference's, the collective term priced at
+    NVLink's rate, MODEL_FLOPS spread over the 256 devices."""
+    monkeypatch.setattr(jroof, "PEAK_FLOPS", H100["bf16"])
+    monkeypatch.setattr(jroof, "HBM_BW", H100["hbm"])
+    monkeypatch.setattr(jroof, "ICI_BW", H100["link"])
+    cells = {k: {**v, "n_devices": 256} for k, v in CELLS.items()}
+    _write(tmp_path, "16x16", cells)
+    ref = {(c.arch, c.shape): c for c in jroof.analyze_all(str(tmp_path), "16x16")}
+    for mesh in ("single", "16x16"):
+        got = {(c.arch, c.shape): c for c in roofline.analyze_all(str(tmp_path), mesh)}
+        assert sorted(got) == sorted(ref)
+        for key, r in ref.items():
+            for f in FIELDS:
+                want = getattr(r, f)
+                assert getattr(got[key], f) == (pytest.approx(want, rel=1e-12)
+                                                if isinstance(want, float) else want), (key, f)
+    train = got[("qwen3-1.7b", "train_4k")]
+    assert train.mesh == "16x16" and train.t_collective > 0
+    assert train.model_flops_per_dev == 6.0e15 / 256
+    assert roofline.analyze_all(str(tmp_path), "multi") == []
