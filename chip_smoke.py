@@ -142,7 +142,17 @@ version:
      ``serve_state_specs`` cache, each held bit for bit to the step
      without a mesh, s a step and peak bytes beside it.  No multi-card
      run: NCCL puts no two ranks on one card;
- 15. the report: one JSON line per the six kernels, then the last line,
+ 15. slice 14's static analysis (``repro_torch.analysis``): (a) the
+     port's repro-lint over ``src/repro_torch`` in-process, no active
+     finding, its counts by rule and suppressed sites printed; (b) the
+     ``LAUNCHES`` keys the CUDA contract pass finds the launching wrappers
+     bump, equal to ``_build.LAUNCHES`` and to the report's kernels; (c)
+     the host-sync pass held to the card: ``features`` and ``device`` at
+     q = 1 on a seeded 4,096 × 22 pool at budgets 32 and 64 under
+     ``torch.cuda.set_sync_debug_mode("warn")``, the synchronizing calls
+     counted and required equal across budgets (``device`` at q = 16,
+     the documented exception, printed without a gate); ≤ 30 s;
+ 16. the report: one JSON line per the six kernels, then the last line,
      {"ok": true, "device": {...}}.
 
 Before phases 2–8, ``kernels`` compares ``topk_sim`` (both list routes:
@@ -430,6 +440,32 @@ STATE_TOL = 0.01
 MESH_BT = (8, 512)
 MESH_DECODE_STEPS = 4
 WORLD_ONE_TOL = 1e-6
+
+# Phase 15: the port's repro-lint on this checkout's tree; its host-sync
+# pass held to the card's own count of synchronizing calls
+# (``torch.cuda.set_sync_debug_mode``) for engines on a seeded
+# SYNC_POOL at each of SYNC_BUDGETS: an engine the pass finds free of
+# in-loop syncs must count the same at every budget.  The phase must end
+# within STATIC_LIMIT_S.
+SYNC_POOL = (4_096, 22)
+SYNC_BUDGETS = (32, 64)
+STATIC_LIMIT_S = 30.0
+
+# The report's kernels: the TPU kernel each replaces and its CUDA source.
+REPLACES = {
+    "fl_gains": "src/repro/kernels/fl_gains.py:106",
+    "fl_gains_argmax": "src/repro/kernels/fl_gains.py:197",
+    "ce_proxy": "src/repro/kernels/ce_proxy.py:113",
+    "topk_sim": "src/repro/kernels/topk_sim.py:115",
+    "pairwise_l2": "src/repro/kernels/pairwise_l2.py:38",
+    "fl_replay": "src/repro/kernels/fl_gains.py:338",
+}
+SOURCES = {"fl_gains": "src/repro_torch/kernels/csrc/fl_gains.cu",
+           "fl_gains_argmax": "src/repro_torch/kernels/csrc/fl_gains.cu",
+           "ce_proxy": "src/repro_torch/kernels/csrc/ce_proxy.cu",
+           "topk_sim": "src/repro_torch/kernels/csrc/topk_sim.cu",
+           "pairwise_l2": "src/repro_torch/kernels/csrc/pairwise_l2.cu",
+           "fl_replay": "src/repro_torch/kernels/csrc/fl_replay.cu"}
 
 
 def log(msg: str) -> None:
@@ -3482,6 +3518,103 @@ def world_one(torch, ops, card, dev) -> dict:
         dist.destroy_process_group()
 
 
+def count_syncs(torch, fn):
+    """(synchronizing CUDA calls ``fn()`` makes, by the Python line that
+    made each; its result; seconds): the calls are those
+    ``torch.cuda.set_sync_debug_mode("warn")`` warns of."""
+    import warnings
+    from collections import Counter
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    sites = Counter(f"{Path(w.filename).name}:{w.lineno}" for w in seen
+                    if "synchroniz" in str(w.message))
+    return sites, out, time.perf_counter() - t0
+
+
+def static_analysis(torch, card: str, dev) -> None:
+    """Phase 15: (a) the port's repro-lint over ``src/repro_torch`` with no
+    active finding; (b) the ``LAUNCHES`` keys that the contract pass finds
+    launching wrappers bump, equal to ``_build.LAUNCHES`` and the report's
+    kernels; (c) the host-sync pass held to the card's sync counts."""
+    from collections import Counter
+
+    from repro_torch.analysis import FileIndex, run_analysis
+    from repro_torch.analysis.rules import cuda_contract
+    from repro_torch.core import engines as E
+    from repro_torch.kernels import _build
+
+    t0 = time.perf_counter()
+    tree = ROOT / "src" / "repro_torch"
+    result = run_analysis([str(tree)])
+    counts = dict(Counter(f.rule_id for f in result.findings))
+    sites = [f"{f.path}:{f.line} [{f.rule_id}]" for f in result.suppressed]
+    if result.active:
+        raise AssertionError("repro-lint findings:\n" + "\n".join(
+            f.format() for f in result.active))
+    index = FileIndex.build([str(tree)])
+    log(f"[15] (a) repro_torch.analysis over {len(index.modules)} files of "
+        f"src/repro_torch: 0 active findings; by rule {counts}, suppressed {sites}; "
+        f"{time.perf_counter() - t0:.2f}s; {card}")
+
+    [contract] = cuda_contract.read_contracts(index)
+    bumps = contract.bumped_keys()
+    bumped = set().union(*bumps.values())
+    if not (bumped == set(_build.LAUNCHES) == set(REPLACES)) or contract.findings:
+        raise AssertionError(f"launching wrappers bump {sorted(bumped)}; LAUNCHES "
+                             f"{sorted(_build.LAUNCHES)}; kernels line {sorted(REPLACES)}")
+    log(f"[15] (b) {len(contract.signatures)} SIGNATURES entries matched to their "
+        f"extern \"C\" prototypes; {len(contract.launching)} launching entries in "
+        f"{len(bumps)} wrappers bump {sorted(bumped)} = LAUNCHES = the kernels line")
+
+    # (c) (a) left no active in-loop sync, so each engine makes as many
+    # syncs at every budget; the suppressed ones are the documented
+    # exceptions (device's lazy-round commit test, q > 1 only), printed
+    exceptions = {
+        cls: [f"{f.path}:{f.line}" for f in result.suppressed
+              if f.rule_id == "host-sync" and f"{cls}.select" in f.message]
+        for cls in ("FeaturesEngine", "DeviceEngine")
+    }
+    log(f"[15] (c) host-sync's suppressed in-loop syncs by engine: {exceptions}")
+    gen = torch.Generator(device=dev).manual_seed(15)
+    pool = torch.randn(*SYNC_POOL, device=dev, generator=gen)
+    runs = {  # label: (gated, engine)
+        "features": (True, lambda: E.FeaturesEngine(E.FeaturesConfig())),
+        "device q=1": (True, lambda: E.DeviceEngine(E.DeviceConfig(q=1))),
+        "device q=16": (False, lambda: E.DeviceEngine(E.DeviceConfig(q=16))),
+    }
+    for label, (gated, make) in runs.items():
+        # warm, under the debug mode too: the first call in a process made
+        # one more sync, in torch.cuda's own __init__.py, none after it
+        warm, _, _ = count_syncs(torch, lambda: make().select(pool, SYNC_BUDGETS[0]))
+        seen = {}
+        for budget in SYNC_BUDGETS:
+            sites, res, secs = count_syncs(torch, lambda: make().select(pool, budget))
+            if res.indices.shape != (budget,):
+                raise AssertionError(f"{label}: {tuple(res.indices.shape)} picks")
+            seen[budget] = (sum(sites.values()), secs, dict(sites))
+        text = ", ".join(f"budget {b}: {n} syncs in {s * 1e3:.1f} ms at {where}"
+                         for b, (n, s, where) in seen.items())
+        if gated and len({n for n, _, _ in seen.values()}) != 1:
+            raise AssertionError(f"{label}: the sync count grows with the budget "
+                                 f"({text}) where host-sync finds no in-loop sync")
+        log(f"[15] (c) {label} on {SYNC_POOL[0]:,} × {SYNC_POOL[1]} (warm run: "
+            f"{dict(warm)}): {text}"
+            f"{'; equal, as host-sync predicts' if gated else ' (not gated)'}; {card}")
+    secs = time.perf_counter() - t0
+    if secs > STATIC_LIMIT_S:
+        raise AssertionError(f"phase 15 took {secs:.1f}s > {STATIC_LIMIT_S}s")
+    log(f"[15] phase total {secs:.1f}s; {card}")
+
+
 def main() -> None:
     import torch
 
@@ -3806,38 +3939,27 @@ def main() -> None:
     max_err["ce_proxy"] = max(max_err["ce_proxy"], one["ce_err"])
     log(f"[14] phase total {time.perf_counter() - t0:.1f}s")
 
-    # -- 15. report ---------------------------------------------------------
-    replaces = {
-        "fl_gains": "src/repro/kernels/fl_gains.py:106",
-        "fl_gains_argmax": "src/repro/kernels/fl_gains.py:197",
-        "ce_proxy": "src/repro/kernels/ce_proxy.py:113",
-        "topk_sim": "src/repro/kernels/topk_sim.py:115",
-        "pairwise_l2": "src/repro/kernels/pairwise_l2.py:38",
-        "fl_replay": "src/repro/kernels/fl_gains.py:338",
-    }
-    sources = {"fl_gains": "src/repro_torch/kernels/csrc/fl_gains.cu",
-               "fl_gains_argmax": "src/repro_torch/kernels/csrc/fl_gains.cu",
-               "ce_proxy": "src/repro_torch/kernels/csrc/ce_proxy.cu",
-               "topk_sim": "src/repro_torch/kernels/csrc/topk_sim.cu",
-               "pairwise_l2": "src/repro_torch/kernels/csrc/pairwise_l2.cu",
-               "fl_replay": "src/repro_torch/kernels/csrc/fl_replay.cu"}
+    # -- 15. static analysis --------------------------------------------------
+    static_analysis(torch, card, dev)
+
+    # -- 16. report ---------------------------------------------------------
     results["fl_gains_argmax"]["launches"] = (main_launches["fl_gains_argmax"]
                                               + spread["fl_gains_argmax"])
     kernels = []
-    for kname in replaces:
+    for kname in REPLACES:
         r = results[kname]
         kernels.append({
             "name": kname, "route": "cuda",
-            "source": sources[kname],
-            "replaces": replaces[kname], "launches": r["launches"],
+            "source": SOURCES[kname],
+            "replaces": REPLACES[kname], "launches": r["launches"],
             "max_abs_err": max_err[kname], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r.get("library_ms"),
         })
     if any(k["launches"] < 1 for k in kernels):
         raise AssertionError(f"a kernel of the path was never launched: {kernels}")
-    log(f"[15] ce_proxy fp32 at the main-path shape: {results['ce_proxy']['fp32']}")
-    log(f"[15] total {time.perf_counter() - t_start:.1f}s")
+    log(f"[16] ce_proxy fp32 at the main-path shape: {results['ce_proxy']['fp32']}")
+    log(f"[16] total {time.perf_counter() - t_start:.1f}s; {card}")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

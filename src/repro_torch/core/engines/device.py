@@ -141,7 +141,8 @@ def greedy_fl_device(
         fresh = fresh_p.index_select(0, j)
         rest = torch.max(ub.index_fill(0, tp, float("-inf")))
         # Small slack absorbs the sweep-vs-column summation-order difference.
-        commit = bool(fresh * (1.0 + 1e-5) + 1e-6 >= stale_tol * rest)  # host sync
+        # The one host sync of a lazy round (q > 1 only).
+        commit = bool(fresh * (1.0 + 1e-5) + 1e-6 >= stale_tol * rest)  # repro-lint: disable=host-sync  # Minoux commit test of block greedy, q > 1 only; the reference keeps it inside its while_loop
         ub = ub.index_copy(0, tp, fresh_p)
         if commit:
             ub.index_fill_(0, e, float("-inf"))
