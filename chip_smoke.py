@@ -152,7 +152,20 @@ version:
      ``torch.cuda.set_sync_debug_mode("warn")``, the synchronizing calls
      counted and required equal across budgets (``device`` at q = 16,
      the documented exception, printed without a gate); ≤ 30 s;
- 16. the report: one JSON line per the six kernels, then the last line,
+ 16. slice 15's tree selection over a ``torch.distributed`` group, one
+     program a rank (``launch/tree.py::make_tree_mesh``,
+     ``tree_select_mesh`` over its ``DeviceMesh``): (a) in process, NCCL in
+     a group of one, fan-outs (8, 4, 1) on phase 7's pool cut to
+     MESH_TREE_N rows: 32 ``device`` leaves (``fl_gains_argmax``) and the
+     two lower levels on ``cuda:0``, the fan-out-1 root level and the
+     re-weighting's gathers through NCCL, the int8 wire, held bit for bit
+     to ``tree_select_host`` on the same rows and topology, the collectives
+     counted against ``collectives_plan``; (b) ``launch/tree.py --driver
+     mesh --device cuda``: one process (fan-outs 2,2,1) held bit for bit
+     to ``tree_select_host``, and two processes, which must fail with the
+     one-rank-per-card error on a one-card host (with two or more cards
+     they run and are held the same way);
+ 17. the report: one JSON line per the six kernels, then the last line,
      {"ok": true, "device": {...}}.
 
 Before phases 2–8, ``kernels`` compares ``topk_sim`` (both list routes:
@@ -166,6 +179,7 @@ Any failure raises and exits non-zero.  Run from the repository root:
 from __future__ import annotations
 
 import atexit
+import concurrent.futures
 import dataclasses
 import json
 import math
@@ -450,6 +464,15 @@ WORLD_ONE_TOL = 1e-6
 SYNC_POOL = (4_096, 22)
 SYNC_BUDGETS = (32, 64)
 STATIC_LIMIT_S = 30.0
+
+# Phase 16: tree selection over a group of ranks.  (a) MESH_TREE_FANOUTS
+# over phase 7's pool cut to its first MESH_TREE_N rows (581,012 = 32 ×
+# 18,156 + 20: a DeviceMesh's leaves must split evenly), with phase 11
+# (b)'s budgets, computed on the whole pool; (b) the launcher at phase 11
+# (c)'s PROC_* with MESH_PROC_FANOUTS.
+MESH_TREE_FANOUTS = (8, 4, 1)
+MESH_TREE_N = 32 * 18_156
+MESH_PROC_FANOUTS = "2,2,1"
 
 # The report's kernels: the TPU kernel each replaces and its CUDA source.
 REPLACES = {
@@ -2199,9 +2222,10 @@ def tree_record(out: str, err: str) -> dict:
     return json.loads(lines[0].split(" ", 1)[1])
 
 
-def distributed_selection(torch, ops, card, dev, feats) -> dict:
+def distributed_selection(torch, ops, card, dev, feats) -> tuple:
     """Phase 11: the distributed path of slice 9 on the card.  Returns the
-    launches of its kernels on its main paths."""
+    launches of its kernels on its main paths, their largest errors against
+    their plain twins and (b)'s seconds on each wire."""
     import numpy as np
 
     from repro_torch import parity
@@ -2456,7 +2480,7 @@ def distributed_selection(torch, ops, card, dev, feats) -> dict:
         f"{peak_d:.2f} GB; {card}")
     del params, fm, fs, out
     torch.cuda.empty_cache()
-    return used, errs
+    return used, errs, {c: secs for c, (_, secs, _) in runs.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -2888,20 +2912,27 @@ def ring_wrap(torch, card, dev) -> None:
 
 def serve_subprocesses(card) -> None:
     """Phase 12 (e): the decode launcher and the serving example, each in a
-    subprocess on the card; each must exit 0."""
+    subprocess on the card, started together (their time is process start;
+    neither is timed against the other); each must exit 0."""
     runs = (["repro_torch.launch.serve", "--arch", "qwen3-1.7b", "--smoke", "--device", "cuda",
              "--batch", "4", "--prompt-len", "16", "--new", "32"],
             ["repro_torch.examples.serve_batched", "--window", "8", "--device", "cuda"])
-    for argv in runs:
+
+    def run(argv):
         t0 = time.perf_counter()
         proc = subprocess.run([sys.executable, "-m", *argv], capture_output=True, text=True,
                               env=dict(os.environ, PYTHONPATH=str(ROOT / "src")), timeout=300)
+        return proc, time.perf_counter() - t0
+
+    with concurrent.futures.ThreadPoolExecutor(len(runs)) as pool:
+        done = list(pool.map(run, runs))
+    for argv, (proc, secs) in zip(runs, done):
         if proc.returncode != 0:
             raise AssertionError(f"{argv[0]} exited {proc.returncode}: {proc.stdout[-2000:]} "
                                  f"{proc.stderr[-2000:]}")
         log(f"[12] (e) python -m {' '.join(argv)}: "
             f"{' | '.join(proc.stdout.strip().splitlines())} "
-            f"({time.perf_counter() - t0:.1f}s, process start included); {card}")
+            f"({secs:.1f}s, process start included, beside the other); {card}")
 
 
 def serving(torch, card, dev, mem_bw: float, real: dict | None = None) -> None:
@@ -3615,6 +3646,149 @@ def static_analysis(torch, card: str, dev) -> None:
     log(f"[15] phase total {secs:.1f}s; {card}")
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: tree selection over a group of ranks
+# ---------------------------------------------------------------------------
+
+
+def hold_tree_records(tag: str, res: list, host) -> dict:
+    """Every ``launch/tree.py`` process exited 0 and printed the same
+    selection, bit for bit ``host``'s; returns rank 0's record."""
+    for rc, _, err in res:
+        if rc != 0:
+            raise AssertionError(f"{tag} launch/tree.py exited {rc}: {err[-2000:]}")
+    recs = [tree_record(out, err) for _, out, err in res]
+    for r in recs:
+        if (r["driver"] != "mesh" or r["indices"] != host.indices.tolist()
+                or r["weights"] != host.weights.tolist()
+                or r["coverage"] != float(host.coverage)):
+            raise AssertionError(f"{tag} process {r['process']} on {r['device']} differs from "
+                                 "tree_select_host")
+    return recs[0]
+
+
+def tree_over_ranks(torch, ops, card, dev, host_11b: dict) -> dict:
+    """Phase 16: ``tree_select_mesh`` over the ``DeviceMesh`` of
+    ``make_tree_mesh``, in process over NCCL in a group of one (a), and
+    ``launch/tree.py --driver mesh --device cuda`` (b).  Returns (a)'s
+    kernel launches."""
+    import socket
+
+    import torch.distributed as dist
+
+    from repro_torch.core import engines as E
+    from repro_torch.core.craig import CraigConfig, CraigSelector
+    from repro_torch.distributed.tree_select import (
+        TreeTopology, collectives_plan, split_levels, tree_select_host, tree_select_mesh)
+    from repro_torch.launch.tree import _synthetic_pool, make_tree_mesh
+
+    t_phase = time.perf_counter()
+    topo = TreeTopology(MESH_TREE_FANOUTS)
+    feats, _ = covtype_pool(dev)
+    n_full = feats.shape[0]
+    x = feats[:MESH_TREE_N].contiguous()
+    del feats
+    # phase 11 (b)'s budgets: its selector's r_final on the whole pool and
+    # r_local over its 32 leaves
+    r_final = CraigSelector(CraigConfig(fraction=TREE_DEEP_FRACTION, per_class=False,
+                                        engine=E.DeviceConfig()), device=dev)._budget(n_full)
+    r_local = max(1, min(n_full // topo.n_leaves, int(r_final * 2 / topo.n_leaves) + 1))
+    kw = dict(local_engine=E.DeviceConfig(), compress="int8")
+
+    # (a) in process: NCCL in a group of one
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    torch.cuda.set_device(dev.index or 0)
+    t0 = time.perf_counter()
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}", rank=0,
+                            world_size=1)
+    gather, calls = dist.all_gather_into_tensor, []
+
+    def counted(out, inp, *args, **kwargs):
+        calls.append((str(inp.dtype), tuple(inp.shape), str(inp.device)))
+        return gather(out, inp, *args, **kwargs)
+
+    try:
+        mesh = make_tree_mesh(topo.fanouts, device_type="cuda")
+        # NCCL makes its communicators at a group's first collective: the
+        # barrier puts that in the set-up, as a user's group pays it once
+        dist.barrier()
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        k, axes = split_levels(topo.fanouts, 1)
+        plan = collectives_plan(len(axes), "int8")
+        dist.all_gather_into_tensor = counted
+        try:
+            got, mesh_s, launches = timed_select(
+                torch, ops, lambda: tree_select_mesh(x, mesh, topo, r_local, r_final, **kw))
+        finally:
+            dist.all_gather_into_tensor = gather
+    finally:
+        dist.destroy_process_group()
+    host, host_s, _ = timed_select(
+        torch, ops, lambda: tree_select_host(x, topo, r_local, r_final, **kw))
+    if not (torch.equal(got.indices, host.indices) and torch.equal(got.weights, host.weights)
+            and torch.equal(got.coverage, host.coverage)):
+        raise AssertionError("[16a] tree_select_mesh over NCCL differs from tree_select_host")
+    if (float(got.weights.sum()) != MESH_TREE_N or len(torch.unique(got.indices)) != r_final
+            or not bool(torch.isfinite(got.coverage))):
+        raise AssertionError(f"[16a] Σγ {float(got.weights.sum())} (expected {MESH_TREE_N}), "
+                             f"{len(torch.unique(got.indices))} distinct of {r_final}, "
+                             f"L(S) {float(got.coverage)}")
+    want = topo.n_leaves * r_local
+    if launches["fl_gains_argmax"] != want:
+        raise AssertionError(f"[16a] launches {launches}, expected {want} fl_gains_argmax")
+    if len(calls) != plan or any(dv != str(x.device) for _, _, dv in calls):
+        raise AssertionError(f"[16a] {len(calls)} all_gather_into_tensor calls {calls}, "
+                             f"planned {plan} on {x.device}")
+    log(f"[16a] tree_select_mesh over a DeviceMesh {dict(zip(axes, mesh.mesh.shape))} of one "
+        f"NCCL rank (local levels {k}, fan-outs {topo.fanouts}, {topo.n_leaves} device leaves "
+        f"of {MESH_TREE_N // topo.n_leaves} × {x.shape[1]}, r_local {r_local}, r_final "
+        f"{r_final}, int8 wire): {mesh_s:.3f}s, launches {launches}; {len(calls)} "
+        f"all_gather_into_tensor = collectives_plan {plan} ({calls}); bit for bit "
+        f"tree_select_host on the same rows ({host_s:.3f}s); group set-up (NCCL "
+        f"init, make_tree_mesh, a first barrier) {setup_s:.3f}s; phase 11 (b)'s host tree "
+        f"(8, 4) on the whole pool: {host_11b['int8']:.3f}s int8, {host_11b['none']:.3f}s "
+        f"fp32; L(S) {float(got.coverage):.4f}, Σγ {float(got.weights.sum()):.0f}; {card}")
+    del x, got, host
+
+    # (b) the launcher: one process over NCCL, and two beside it
+    args = ["--driver", "mesh", "--fanouts", MESH_PROC_FANOUTS, "--n", str(PROC_N),
+            "--d", str(PROC_D), "--r-local", str(PROC_R_LOCAL), "--r-final",
+            str(PROC_R_FINAL), "--device", "cuda"]
+    fanouts = tuple(int(f) for f in MESH_PROC_FANOUTS.split(","))
+    host = tree_select_host(torch.from_numpy(_synthetic_pool(PROC_N, PROC_D, 0)).to(dev),
+                            TreeTopology(fanouts), PROC_R_LOCAL, PROC_R_FINAL, compress="int8")
+    # the two processes start beside the one (with one card they are
+    # refused before they touch it)
+    cards = torch.cuda.device_count()
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        t0 = time.perf_counter()
+        pair = pool.submit(launch_tree, 2, args)
+        rec = hold_tree_records("[16b]", launch_tree(1, args), host)
+        one_s = time.perf_counter() - t0
+        res = pair.result()
+        two_s = time.perf_counter() - t0
+    log(f"[16b] launch/tree.py --driver mesh, 1 process on {rec['device']} (fan-outs "
+        f"{MESH_PROC_FANOUTS}, {PROC_N} × {PROC_D}, r_local {PROC_R_LOCAL}, r_final "
+        f"{PROC_R_FINAL}, int8 wire): {one_s:.1f}s (process start included, beside the "
+        f"two below); bit for bit tree_select_host; Σγ {rec['weight_sum']:.0f}; {card}")
+    if cards >= 2:
+        hold_tree_records("[16b] 2 processes:", res, host)
+        log(f"[16b] 2 processes on {cards} cards: {two_s:.1f}s; both bit for bit "
+            f"tree_select_host; {card}")
+    else:
+        for rc, out, err in res:
+            if rc == 0 or "TREE_SELECT_RESULT" in out or "one rank per card" not in err:
+                raise AssertionError(f"[16b] 2 processes on {cards} card: exit {rc}, expected "
+                                     f"the one-rank-per-card error: {err[-2000:]}")
+        log(f"[16b] 2 processes on {cards} card: both refused before any group started "
+            f"({two_s:.1f}s): {err.strip().splitlines()[-1]}")
+    log(f"[16] phase total {time.perf_counter() - t_phase:.1f}s; {card}")
+    return launches
+
+
 def main() -> None:
     import torch
 
@@ -3898,7 +4072,7 @@ def main() -> None:
     mesh_sweep = start_mesh_sweep()  # phase 14 (a), host work beside 11–13
     atexit.register(stop_sweep, mesh_sweep)  # whatever phase fails
     t0 = time.perf_counter()
-    spread, spread_err = distributed_selection(torch, ops, card, dev, cov_feats)
+    spread, spread_err, host_11b = distributed_selection(torch, ops, card, dev, cov_feats)
     for kname in ("topk_sim", "pairwise_l2", "ce_proxy"):
         results[kname]["launches"] += spread[kname]
     for kname, e in spread_err.items():
@@ -3942,9 +4116,13 @@ def main() -> None:
     # -- 15. static analysis --------------------------------------------------
     static_analysis(torch, card, dev)
 
-    # -- 16. report ---------------------------------------------------------
+    # -- 16. tree selection over a group of ranks -------------------------------
+    ranked = tree_over_ranks(torch, ops, card, dev, host_11b)
+
+    # -- 17. report ---------------------------------------------------------
     results["fl_gains_argmax"]["launches"] = (main_launches["fl_gains_argmax"]
-                                              + spread["fl_gains_argmax"])
+                                              + spread["fl_gains_argmax"]
+                                              + ranked["fl_gains_argmax"])
     kernels = []
     for kname in REPLACES:
         r = results[kname]
@@ -3958,8 +4136,8 @@ def main() -> None:
         })
     if any(k["launches"] < 1 for k in kernels):
         raise AssertionError(f"a kernel of the path was never launched: {kernels}")
-    log(f"[16] ce_proxy fp32 at the main-path shape: {results['ce_proxy']['fp32']}")
-    log(f"[16] total {time.perf_counter() - t_start:.1f}s; {card}")
+    log(f"[17] ce_proxy fp32 at the main-path shape: {results['ce_proxy']['fp32']}")
+    log(f"[17] total {time.perf_counter() - t_start:.1f}s; {card}")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

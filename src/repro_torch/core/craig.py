@@ -199,9 +199,16 @@ class CraigSelector:
         to (``ROUND1_ENGINES``; 'auto' picks per *shard* pool size, and
         lazy or stochastic fall back to the auto pick with a warning).
         ``metric='cosine'`` unit-normalizes the pool and reports coverage
-        in cosine-distance units.
+        in cosine-distance units.  ``mesh`` is a ``launch.mesh.Mesh`` or a
+        one-axis ``DeviceMesh`` of ranks, each calling this with the same
+        pool (``distributed_select``).
         """
-        from repro_torch.core.distributed import distributed_select, resolve_round1_config
+        from repro_torch.core.distributed import (
+            distributed_select,
+            is_rank_mesh,
+            rank_device,
+            resolve_round1_config,
+        )
 
         cfg = self.config
         if cfg.mode == "cover":
@@ -213,13 +220,15 @@ class CraigSelector:
             torch.as_tensor(feats, dtype=torch.float32).to(self.device), cfg.metric
         )
         n = feats.shape[0]
-        n_shards = int(mesh.shape[axis_name])
+        if is_rank_mesh(mesh):
+            n_shards, shard_device = mesh.size(), rank_device(mesh)
+        else:
+            n_shards, shard_device = int(mesh.shape[axis_name]), mesh.axis_devices(axis_name)[0]
         r_final = self._budget(n)
         r_local = max(1, min(n // n_shards, int(r_final * 2 / n_shards) + 1))
         typed = resolve_engine_config(cfg)
         engine_cfg = resolve_round1_config(
-            "auto" if typed is None else typed, {}, n // n_shards,
-            device=mesh.axis_devices(axis_name)[0],
+            "auto" if typed is None else typed, {}, n // n_shards, device=shard_device,
         )
         res = distributed_select(
             feats, mesh, r_local=r_local, r_final=r_final, axis_name=axis_name,

@@ -6,9 +6,13 @@ Port of ``repro.core.distributed``.  The reference maps its rounds over a
 process driving every shard, each shard's work on that shard's device
 (several shards may share one device).  ``all_gather(tiled=True)``
 becomes a concatenation in shard order on the first shard's device, the
-replicated merge runs once, and ``psum`` becomes a sum in shard order.  A
-multi-process mesh (one rank per card over NCCL) is a later item
-(ROADMAP.md queue 1).
+replicated merge runs once, and ``psum`` becomes a sum in shard order.
+Over a one-axis ``DeviceMesh`` of a ``torch.distributed`` group (NCCL, one
+rank per card; gloo on the CPU) the same body runs as the reference's
+program does, on every rank: one shard a rank, ``all_gather(tiled=True)``
+an ``all_gather_into_tensor`` over the axis's group, the merge replicated
+on every rank, and the re-weighting's partials gathered and summed in
+shard order, so both forms agree bit for bit.
 
   Round 1 (local): every shard runs greedy facility location over its
       partition of the pool, selecting ``r_local`` candidates with local γ
@@ -60,6 +64,10 @@ __all__ = [
     "leaf_bounds",
     "check_candidate_counts",
     "check_even_shards",
+    "is_rank_mesh",
+    "leaf_rows",
+    "rank_device",
+    "rank_index",
 ]
 
 # Engines with a distributed round-1 body.  The host-side lazy greedy and
@@ -328,6 +336,86 @@ def reweight(feats_local: torch.Tensor, medoids: torch.Tensor, squared_coverage:
     return counts, torch.sum(residual)
 
 
+def is_rank_mesh(mesh) -> bool:
+    """Whether ``mesh`` is a ``DeviceMesh`` of ranks (one program a rank)
+    rather than a single-controller ``launch.mesh.Mesh``."""
+    if not torch.distributed.is_available():
+        return False
+    from torch.distributed.device_mesh import DeviceMesh
+
+    return isinstance(mesh, DeviceMesh)
+
+
+def rank_index(mesh) -> int:
+    """This rank's position in ``mesh``, row-major over its dims: its shard
+    (or its first leaf's block) in pool order.
+
+    Raises:
+      ValueError: the mesh's ranks do not increase row-major.  A dim's
+        group gathers in rank order, which is then not the mesh's order.
+    """
+    ranks = mesh.mesh.reshape(-1)
+    if bool((ranks[1:] <= ranks[:-1]).any()):
+        raise ValueError(
+            f"the mesh's ranks {ranks.tolist()} do not increase row-major; its "
+            "groups gather in rank order, so shard order would not be pool order"
+        )
+    index = 0
+    for size, coord in zip(mesh.mesh.shape, mesh.get_coordinate()):
+        index = index * int(size) + int(coord)
+    return index
+
+
+def rank_device(mesh) -> torch.device:
+    """The device this rank computes on: its current card for a ``cuda``
+    mesh (set with ``torch.cuda.set_device`` before the group starts)."""
+    if mesh.device_type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(mesh.device_type)
+
+
+def _gather(t: torch.Tensor, group) -> torch.Tensor:
+    """``all_gather(tiled=True)`` over ``group``: every member's ``t``
+    concatenated along dim 0, in group-rank order, on every member."""
+    import torch.distributed as dist
+
+    t = t.contiguous()
+    out = t.new_empty((dist.get_world_size(group) * t.shape[0], *t.shape[1:]))
+    dist.all_gather_into_tensor(out, t, group=group)
+    return out
+
+
+def leaf_rows(rows: torch.Tensor, groups) -> torch.Tensor:
+    """Every rank's ``rows`` (one a local leaf, in leaf order) gathered over
+    the level groups of a tree's rank levels, leaf-adjacent first: every
+    leaf's row in leaf order, on every rank."""
+    for group in groups:
+        rows = _gather(rows, group)
+    return rows
+
+
+def _union_here(group: list, wire) -> tuple:
+    """A merge node's candidate union, its children in this process: each
+    child's rows as the receiver sees them off ``wire``, on the first
+    child's device."""
+    dev = group[0][0].device
+    feats = torch.cat([
+        (f if wire is None else wire[1](*wire[0](f))).to(dev) for f, _, _ in group
+    ])
+    return (feats, torch.cat([w.to(dev) for _, w, _ in group]),
+            torch.cat([g.to(dev) for _, _, g in group]))
+
+
+def _union_over(node: tuple, wire, group) -> tuple:
+    """A merge node's candidate union, one child a rank of ``group``: the
+    payload the sender encodes (int8 codes, then fp32 row scales, or fp32
+    rows), then γ, then the global ids, each gathered; decoded on arrival."""
+    f, w, g = node
+    parts = [_gather(p, group) for p in ((f,) if wire is None else wire[0](f))]
+    feats = parts[0] if wire is None else wire[1](*parts)
+    return feats, _gather(w, group), _gather(g, group)
+
+
 def run_tree(
     leaves: Sequence[torch.Tensor],
     bases: Sequence[int],
@@ -337,53 +425,65 @@ def run_tree(
     r_final: int,
     engine_cfg: EngineConfig,
     squared_coverage: bool,
-    wire: Callable[[torch.Tensor], torch.Tensor] | None = None,
+    wire: tuple[Callable, Callable] | None = None,
+    groups: Sequence = (),
 ):
-    """The one body of every in-process driver: the two rounds (one merge
-    level, ``fanouts=(n_shards,)``) and the tree at any depth.
+    """The one body of every mesh and host driver: the two rounds (one
+    merge level, ``fanouts=(n_shards,)``) and the tree at any depth.
 
-    Leaves select on their devices (``leaf_round``); at each level every
-    group of ``fanout`` consecutive nodes ships its candidates through
-    ``wire`` (what the receiver sees; None is the fp32 wire) to the group's
-    first device — ``all_gather(tiled=True)`` — and re-greedies there
-    (``merge_round``, at ``r_final`` on the last level and at most
-    ``r_node`` below it); the root's medoids re-weight every leaf, the
-    partials summed in leaf order (``psum``).  ``bases[l]`` is leaf l's
-    first global row.  Returns (global indices, γ, coverage) on the root's
-    device.
+    Leaves select on their devices (``leaf_round``).  At each level every
+    group of ``fanout`` consecutive nodes merges (``merge_round``, at
+    ``r_final`` on the last level and at most ``r_node`` below it) over
+    the union of its children's candidates: ``all_gather(tiled=True)``.
+    A level below the last ``len(groups)`` gathers in this process, to the
+    group's first device; each of those last levels spans ranks, this
+    process holding one node, and gathers over its process group
+    (``groups[i]`` for level ``len(fanouts) − len(groups) + i``, leaf-adjacent
+    first), every rank of a subtree then merging the same union.
+    ``wire`` is ``(encode, decode)``: what a sender ships of its candidate
+    rows and how the receiver rebuilds them (None: fp32 as is).  The root's
+    medoids re-weight every leaf; the partials (counts and coverage) are
+    gathered over the groups, minor first, which leaves every leaf's in
+    leaf order on every rank, and summed in that order (``psum``).
+    ``bases[l]`` is leaf l's first global row.  Returns (global indices, γ,
+    coverage) on the root's device.
     """
     nodes = []  # (cand_feats, cand_w, cand_gidx) per live node, leaf order
     for x, base in zip(leaves, bases):
         idx, w = leaf_round(x, r_local, engine_cfg)
         nodes.append((x[idx], w, base + idx))
 
+    local = len(fanouts) - len(groups)
     for level, fanout in enumerate(fanouts):
         budget = r_final if level == len(fanouts) - 1 else min(
             r_node, fanout * nodes[0][0].shape[0]
         )
-        merged = []
-        for lo in range(0, len(nodes), fanout):
-            group = nodes[lo:lo + fanout]
-            dev = group[0][0].device
-            cand_feats = torch.cat([
-                (f if wire is None else wire(f)).to(dev) for f, _, _ in group
-            ])
-            cand_w = torch.cat([w.to(dev) for _, w, _ in group])
-            cand_gidx = torch.cat([g.to(dev) for _, _, g in group])
+        if level < local:
+            unions = [_union_here(nodes[lo:lo + fanout], wire)
+                      for lo in range(0, len(nodes), fanout)]
+        else:
+            (node,) = nodes
+            unions = [_union_over(node, wire, groups[level - local])]
+        nodes = []
+        for cand_feats, cand_w, cand_gidx in unions:
             res = merge_round(cand_feats, cand_w, budget)
-            merged.append(
+            nodes.append(
                 (cand_feats[res.indices], res.weights, cand_gidx[res.indices])
             )
-        nodes = merged
     (root_feats, _, root_gidx), = nodes
 
     root = root_feats.device
-    counts = torch.zeros((r_final,), dtype=torch.float32, device=root)
-    coverage = torch.zeros((), dtype=torch.float32, device=root)
+    partials = []
     for x in leaves:
         c, cov = reweight(x, root_feats.to(x.device), squared_coverage)
-        counts = counts + c.to(root)
-        coverage = coverage + cov.to(root)
+        partials.append(torch.cat([c, cov[None]]).to(root))
+    if groups:
+        partials = list(leaf_rows(torch.stack(partials), groups))
+    counts = torch.zeros((r_final,), dtype=torch.float32, device=root)
+    coverage = torch.zeros((), dtype=torch.float32, device=root)
+    for p in partials:
+        counts = counts + p[:r_final]
+        coverage = coverage + p[r_final]
     return root_gidx, counts, coverage
 
 
@@ -459,9 +559,24 @@ def distributed_select(
     ``local_engine`` picks the round-1 body: a typed ``EngineConfig``, or
     ``'auto'`` to resolve it per shard pool size; legacy strings with flat
     knob kwargs warn and map.
+
+    ``mesh`` is a ``launch.mesh.Mesh`` (one process drives every shard) or
+    a one-axis ``DeviceMesh`` named ``axis_name``, whose every rank calls
+    this with the same ``feats`` and holds shard s = its position: the
+    one-level fp32 tree over the ranks, the result the same on every rank.
     """
-    devices = mesh.axis_devices(axis_name)
-    n_shards = len(devices)
+    rank_mesh = is_rank_mesh(mesh)
+    if rank_mesh:
+        if mesh.mesh_dim_names != (axis_name,):
+            raise ValueError(
+                f"distributed_select: a DeviceMesh must have the one axis "
+                f"({axis_name!r},), got {mesh.mesh_dim_names}"
+            )
+        n_shards = mesh.size()
+        devices = [rank_device(mesh)]
+    else:
+        devices = mesh.axis_devices(axis_name)
+        n_shards = len(devices)
     n = int(feats.shape[0])
     check_even_shards(n, n_shards, where="distributed_select")
     n_local = n // n_shards
@@ -471,10 +586,14 @@ def distributed_select(
     engine_config = resolve_round1_config(
         local_engine, legacy_knobs, n_local, device=devices[0]
     )
-    bounds = [(s * n_local, (s + 1) * n_local) for s in range(n_shards)]
-    idx, w, cov = local_then_merge(
-        shard_rows(feats, bounds, devices), r_local, r_final,
-        engine_config=engine_config, squared_coverage=squared_coverage,
+    if rank_mesh:
+        shards, groups = [rank_index(mesh)], [mesh.get_group(axis_name)]
+    else:
+        shards, groups = range(n_shards), ()
+    bounds = [(s * n_local, (s + 1) * n_local) for s in shards]
+    idx, w, cov = run_tree(
+        shard_rows(feats, bounds, devices), [lo for lo, _ in bounds], (n_shards,),
+        r_local, r_final, r_final, engine_config, squared_coverage, groups=groups,
     )
     return DistributedSelection(idx, w, cov)
 

@@ -11,16 +11,18 @@ fp32, one-shot so no error feedback); ``compress='none'`` is the fp32
 escape hatch.
 
 Three drivers share the same level math (``leaf_round``/``merge_round``),
-so their selections agree bit for bit on the same pool; the two in-process
-ones, and the two rounds, run one body (``core.distributed.run_tree``):
+so their selections agree bit for bit on the same pool; the host and mesh
+drivers, and the two rounds, run one body (``core.distributed.run_tree``):
 
 * :func:`tree_select_host` — one process over a global (n, d) pool on one
   device, ragged leaves allowed; the reference driver.
 * :func:`tree_select_mesh` — over a level-axis ``Mesh`` (:func:`tree_mesh`),
   each leaf on its mesh device and each merge once per subtree on its
   first device: the single-controller form of the reference's
-  ``shard_map`` program.  A multi-process NCCL mesh is a later item
-  (ROADMAP.md queue 1).
+  ``shard_map`` program; or, one program a rank, over the ``DeviceMesh``
+  of ``launch.tree.make_tree_mesh`` (NCCL with one rank per card, gloo on
+  the CPU): the levels that span ranks gather over the mesh's groups, the
+  rest merge in the rank's process (:func:`split_levels`).
 * ``tree_select_processes`` (``distributed.process_tree``) — one process
   per leaf over a ``torch.distributed.TCPStore``.
 
@@ -31,6 +33,7 @@ any depth.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import ClassVar, NamedTuple, Sequence
 
 import numpy as np
@@ -39,7 +42,10 @@ import torch
 from repro_torch.core.distributed import (
     check_candidate_counts,
     check_even_shards,
+    is_rank_mesh,
     leaf_bounds,
+    rank_device,
+    rank_index,
     resolve_round1_config,
     run_tree,
     shard_rows,
@@ -58,6 +64,8 @@ __all__ = [
     "tree_mesh",
     "tree_select_host",
     "tree_select_mesh",
+    "split_levels",
+    "collectives_plan",
     "wire_bytes_plan",
     "default_r_node",
 ]
@@ -187,9 +195,10 @@ def _through_wire(feats: torch.Tensor, compress: str) -> torch.Tensor:
 
 
 def _wire(compress: str):
-    """``run_tree``'s wire for a mode: None (fp32 as is) or the int8 trip."""
+    """``run_tree``'s wire for a mode: None (fp32 as is) or the int8
+    ``(encode, decode)`` pair, quantized by the sender."""
     _check_wire(compress)
-    return None if compress == "none" else (lambda f: _through_wire(f, compress))
+    return None if compress == "none" else (quantize_rows_int8, dequantize_rows_int8)
 
 
 def _payload_bytes(r: int, d: int, compress: str) -> int:
@@ -257,6 +266,9 @@ class TreeSelection(NamedTuple):
       health: the process driver's degradation record (``degraded``,
         ``missing_pids``, ``quorum``, ``min_quorum``, ``r_final``,
         ``level_deadline_s``); None from the host and mesh drivers.
+
+    Over a ``DeviceMesh`` every rank returns the same selection, on its
+    own device.
     """
 
     indices: torch.Tensor
@@ -383,6 +395,66 @@ def tree_mesh(topology: TreeTopology, devices=None):
     )
 
 
+def split_levels(fanouts: Sequence[int], world: int) -> tuple[int, tuple[str, ...]]:
+    """How a tree of ``fanouts`` lies over ``world`` ranks: ``(k, axes)``.
+
+    k is the smallest level whose fan-outs k … L−1 multiply to ``world``:
+    those levels span ranks, ``axes`` their level axes major first
+    (``('lvl{L-1}', …, 'lvl{k}')``), and levels 0 … k−1 are each rank's
+    own Π fanouts[:k] leaves, merged in its process (``lvl0`` minor, as on
+    the single-controller mesh).  Leaf ids stay row-major over
+    ``(lvl{L-1}, …, lvl0)``, so rank r owns leaves [r·Π fanouts[:k],
+    (r+1)·Π fanouts[:k]).
+
+    Raises:
+      ValueError: no such k, or k = L (a group of one rank under a root
+        fan-out > 1: no level would span it).
+    """
+    topology = TreeTopology(tuple(fanouts))
+    fo = topology.fanouts
+    for k in range(len(fo) + 1):
+        if math.prod(fo[k:]) == world:
+            break
+    else:
+        raise ValueError(
+            f"fan-outs {fo} do not lie over {world} ranks: no trailing run of "
+            f"them multiplies to the world size {world}"
+        )
+    if k == len(fo):
+        raise ValueError(
+            f"fan-outs {fo} over {world} rank leave no level spanning the "
+            "ranks; end them with a fan-out of 1 (e.g. "
+            f"{fo + (1,)}) for a root level over the group"
+        )
+    return k, tuple(reversed(topology.axis_names[k:]))
+
+
+def collectives_plan(rank_levels: int, compress: str) -> int:
+    """The collectives one rank calls in :func:`tree_select_mesh` over a
+    ``DeviceMesh`` of ``rank_levels`` level axes: at each, the candidate
+    payload (int8 codes and fp32 row scales, or fp32 rows), γ and the
+    global ids; then one gather a level axis of the re-weighting's
+    partials."""
+    _check_wire(compress)
+    payload = 2 if compress == "int8" else 1
+    return rank_levels * (payload + 2 + 1)
+
+
+def _rank_levels(mesh, topology: TreeTopology) -> int:
+    """k of a ``DeviceMesh`` over the topology's top levels: its axes and
+    shape must be those :func:`split_levels` gives its size."""
+    k, axes = split_levels(topology.fanouts, mesh.size())
+    shape = tuple(reversed(topology.fanouts[k:]))
+    if tuple(mesh.mesh_dim_names or ()) != axes or tuple(mesh.mesh.shape) != shape:
+        raise ValueError(
+            f"tree_select_mesh: a DeviceMesh of axes {mesh.mesh_dim_names} and "
+            f"shape {tuple(mesh.mesh.shape)} is not the top levels {axes} {shape} of "
+            f"fan-outs {topology.fanouts} — build it with "
+            "launch.tree.make_tree_mesh(fanouts)"
+        )
+    return k
+
+
 def tree_select_mesh(
     feats,
     mesh,
@@ -397,22 +469,37 @@ def tree_select_mesh(
 ) -> TreeSelection:
     """Hierarchical selection over a level-axis ``mesh``.
 
-    ``mesh`` carries the topology's level axes (:func:`tree_mesh`);
-    ``feats`` is the global (n, d) pool, n divisible by ``n_leaves``.
-    Leaf l (row-major over the mesh, ``lvl0`` minor) holds rows
-    [l·n/L, (l+1)·n/L) on its mesh device; each merge runs once, on the
-    first device of its subtree, where the reference replicates it over
-    the subtree.  Equal to :func:`tree_select_host` bit for bit when the
-    devices are of one kind.
+    ``feats`` is the global (n, d) pool, n divisible by ``n_leaves``; leaf
+    l (row-major over ``(lvl{L-1}, …, lvl0)``) holds rows
+    [l·n/L, (l+1)·n/L).  ``mesh`` is either
+
+    * a ``launch.mesh.Mesh`` carrying every level axis (:func:`tree_mesh`):
+      each leaf on its mesh device, each merge once, on the first device
+      of its subtree, where the reference replicates it over the subtree;
+    * or a ``DeviceMesh`` over the top levels (``launch.tree.make_tree_mesh``,
+      :func:`split_levels`), every rank calling this with the same
+      ``feats``: a rank selects its own leaves on its device, merges the
+      local levels in its process and gathers each rank level over the
+      mesh's group of that axis, the merge replicated on every rank of the
+      subtree as in the reference; the re-weighting's partials are
+      gathered and summed in leaf order (:func:`collectives_plan` counts
+      the collectives).  Every rank returns the same selection.
+
+    Equal to :func:`tree_select_host` bit for bit when the devices are of
+    one kind.
     """
     _check_wire(compress)
-    for ax in topology.axis_names:
-        if ax not in mesh.shape:
-            raise ValueError(
-                f"tree_select_mesh: mesh axes {tuple(mesh.shape)} are "
-                f"missing level axis {ax!r} — build the mesh with "
-                "tree_mesh(topology)"
-            )
+    rank_mesh = is_rank_mesh(mesh)
+    if rank_mesh:
+        k = _rank_levels(mesh, topology)
+    else:
+        for ax in topology.axis_names:
+            if ax not in mesh.shape:
+                raise ValueError(
+                    f"tree_select_mesh: mesh axes {tuple(mesh.shape)} are "
+                    f"missing level axis {ax!r} — build the mesh with "
+                    "tree_mesh(topology)"
+                )
     n, d = feats.shape
     n_leaves = topology.n_leaves
     check_even_shards(n, n_leaves, where="tree_select_mesh")
@@ -421,17 +508,26 @@ def tree_select_mesh(
     _check_tree_counts(
         [n_local], topology, r_local, r_node, r_final, where="tree_select_mesh",
     )
-    # leaf order is row-major over (lvl{L-1}, …, lvl0), as the reference's
-    # leaf id from the axis coordinates
-    order = tuple(reversed(topology.axis_names))
-    devices = list(mesh.devices.transpose(
-        [mesh.axis_names.index(ax) for ax in order]).reshape(-1))
+    groups = ()
+    if rank_mesh:
+        per_rank = math.prod(topology.fanouts[:k])
+        first = rank_index(mesh) * per_rank
+        devices = [rank_device(mesh)] * per_rank
+        groups = [mesh.get_group(ax) for ax in topology.axis_names[k:]]
+    else:
+        # leaf order is row-major over (lvl{L-1}, …, lvl0), as the
+        # reference's leaf id from the axis coordinates
+        order = tuple(reversed(topology.axis_names))
+        devices = list(mesh.devices.transpose(
+            [mesh.axis_names.index(ax) for ax in order]).reshape(-1))
+        first = 0
     engine_cfg = resolve_round1_config(local_engine, {}, n_local, device=devices[0])
-    bounds = [(i * n_local, (i + 1) * n_local) for i in range(n_leaves)]
+    bounds = [((first + i) * n_local, (first + i + 1) * n_local)
+              for i in range(len(devices))]
     idx, w, cov = run_tree(
         shard_rows(feats, bounds, devices), [lo for lo, _ in bounds],
         topology.fanouts, r_local, r_node, r_final, engine_cfg,
-        squared_coverage, _wire(compress),
+        squared_coverage, _wire(compress), groups,
     )
     wire = wire_bytes_plan(topology, r_local, r_node, d, compress)
     return TreeSelection(idx, w, cov, wire)

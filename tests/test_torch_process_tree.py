@@ -328,12 +328,43 @@ def test_killed_leaf_degrades_to_quorum():
 
 
 def test_mesh_driver_of_the_launcher_raises():
+    """``--driver mesh``: two gloo processes equal ``tree_select_host`` bit
+    for bit; a pool that does not divide over the leaves fails on every
+    process with the reference's audit, and ``--device cuda`` raises before
+    any group starts where there are fewer cards than processes (here,
+    none)."""
     from repro_torch.launch import tree
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tree.main(["--coordinator", "127.0.0.1:1", "--num-processes", "1",
-                   "--process-id", "0", "--driver", "mesh", "--device", "cpu"])
     with pytest.raises(ValueError, match="host:port"):
         initialize_distributed("nowhere", 1, 0)
     a, b = _synthetic_pool(64, 8, 0), _synthetic_pool(64, 8, 0)
     assert a.dtype == np.float32 and np.array_equal(a, b)
+
+    n, d = 1024, 16
+    args = ["--driver", "mesh", "--fanouts", "2,2", "--d", str(d), "--r-local", "12",
+            "--r-final", "20"]
+    procs, outs = _launch(2, [*args, "--n", str(n)])
+    for p, (_, err) in zip(procs, outs):
+        assert p.returncode == 0, err[-3000:]
+    recs = [_record(out) for out, _ in outs]
+    assert [r["process"] for r in recs] == [0, 1]
+    assert all(r["driver"] == "mesh" and r["device"] == "cpu" and r["health"] is None
+               for r in recs)
+    keys = ("indices", "weights", "coverage", "wire_bytes")
+    assert all(tuple(r[k] for k in keys) == tuple(recs[0][k] for k in keys) for r in recs)
+    ref = tree_select_host(torch.from_numpy(_synthetic_pool(n, d, 0)), TreeTopology((2, 2)),
+                           12, 20, compress="int8")
+    assert ref.indices.tolist() == recs[0]["indices"]
+    assert ref.weights.tolist() == recs[0]["weights"]
+    assert float(ref.coverage) == recs[0]["coverage"]
+    assert recs[0]["weight_sum"] == n and recs[0]["wire_bytes"] == ref.wire[
+        "gathered_feature_bytes"]
+
+    procs, outs = _launch(2, [*args, "--n", str(n - 2)])
+    for p, (out, err) in zip(procs, outs):
+        assert p.returncode != 0 and "TREE_SELECT_RESULT" not in out
+        assert "not divisible" in err, err[-3000:]
+
+    with pytest.raises(ValueError, match="one rank per card"):
+        tree.main(["--coordinator", "127.0.0.1:1", "--num-processes", "1",
+                   "--process-id", "0", "--driver", "mesh", "--device", "cuda"])

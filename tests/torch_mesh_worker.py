@@ -1,7 +1,8 @@
 """One rank of the port's multi-process mesh checks, over gloo on the CPU.
 
-Run by ``tests/test_torch_sharded_step.py`` and
-``tests/test_torch_collectives.py`` (four processes each), or by hand::
+Run by ``tests/test_torch_sharded_step.py``,
+``tests/test_torch_collectives.py`` and ``tests/test_torch_tree_mesh.py``
+(four processes each), or by hand::
 
     PYTHONPATH=src torchrun --nproc-per-node 4 tests/torch_mesh_worker.py \\
         --case sharded_step --device cpu --out /tmp/mesh
@@ -24,12 +25,20 @@ tests read into ``--out``: ``<case>.json`` (scalars) and ``<case>.pt``
   the unsharded ones, bit for bit.
 * ``collectives``: ``distributed.collectives`` and the group form of
   ``compressed_psum`` on seeded per-rank inputs.
+* ``tree_mesh``: ``tree_select_mesh`` over ``launch.tree.make_tree_mesh``
+  on :func:`tree_pool`, every fan-out of ``TREE_CASES`` on its group size
+  and both wires (the four ranks, then ranks 0–1 in a group of two, then
+  rank 0 alone), the two rounds over a 4-rank ``DeviceMesh``
+  (``distributed_select`` and ``CraigSelector.select_distributed``) and
+  the errors of a ragged pool and of fan-outs that do not fit the group.
+  Every rank writes ``tree_mesh.<rank>.pt``.
 """
 from __future__ import annotations
 
 import argparse
 import copy
 import json
+import math
 import os
 import sys
 import time
@@ -40,6 +49,11 @@ import torch.distributed as dist
 
 torch.set_num_threads(1)
 
+# (fan-outs, ranks) of the tree_mesh case; the pool and budgets are the
+# reference's mesh test's (tests/test_tree_select.py): 512 × 16, 6 and 10
+TREE_CASES = (((2, 2), 4), ((2, 2, 2), 4), ((2, 2), 2), ((4, 2), 2), ((4, 1), 1))
+TREE_N, TREE_D, TREE_R_LOCAL, TREE_R_FINAL = 512, 16, 6, 10
+TREE_SHARDS = 4
 FAMILIES = {"dense": "qwen3-1.7b", "moe": "moonshot-v1-16b-a3b",
             "griffin": "recurrentgemma-9b", "xlstm": "xlstm-1.3b"}
 B, T = 4, 8
@@ -301,6 +315,95 @@ def collectives(out: str) -> None:
     dist.destroy_process_group()
 
 
+def tree_pool() -> np.ndarray:
+    """The seeded clustered (TREE_N, TREE_D) pool: eight centres 5σ apart,
+    each point one of them plus 0.3σ noise."""
+    rng = np.random.RandomState(0)
+    centers = 5.0 * rng.randn(8, TREE_D).astype(np.float32)
+    assign = rng.randint(0, 8, TREE_N)
+    return (centers[assign] + 0.3 * rng.randn(TREE_N, TREE_D)).astype(np.float32)
+
+
+def _tree_selections(world: int, feats, res: dict) -> None:
+    """Each TREE_CASES tree of ``world`` ranks on both wires: (indices, γ,
+    coverage, all_gather_into_tensor calls this rank made); and the leaf
+    ids of its ranks through ``leaf_rows``."""
+    from repro_torch.core.distributed import leaf_rows, rank_index
+    from repro_torch.distributed.tree_select import (
+        TreeTopology, split_levels, tree_select_mesh)
+    from repro_torch.launch.tree import make_tree_mesh
+
+    gather = dist.all_gather_into_tensor
+    calls = [0]
+
+    def counted(*args, **kwargs):
+        calls[0] += 1
+        return gather(*args, **kwargs)
+
+    for fanouts, ranks in TREE_CASES:
+        if ranks != world:
+            continue
+        mesh = make_tree_mesh(fanouts, device_type="cpu")
+        # the gather the re-weighting's partials take, on each rank's leaf ids
+        k, _ = split_levels(fanouts, world)
+        per_rank = math.prod(fanouts[:k])
+        first = rank_index(mesh) * per_rank
+        ids = torch.arange(first, first + per_rank, dtype=torch.float32)[:, None]
+        groups = [mesh.get_group(ax) for ax in TreeTopology(fanouts).axis_names[k:]]
+        res[(fanouts, ranks, "leaf_rows")] = leaf_rows(ids, groups)[:, 0]
+        for compress in ("int8", "none"):
+            calls[0] = 0
+            dist.all_gather_into_tensor = counted
+            try:
+                sel = tree_select_mesh(feats, mesh, TreeTopology(fanouts), TREE_R_LOCAL,
+                                       TREE_R_FINAL, compress=compress)
+            finally:
+                dist.all_gather_into_tensor = gather
+            res[(fanouts, ranks, compress)] = (sel.indices, sel.weights, sel.coverage,
+                                               calls[0])
+
+
+def _error(fn) -> str:
+    try:
+        fn()
+    except ValueError as e:
+        return str(e)
+    return ""
+
+
+def tree_mesh(out: str) -> None:
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.core.craig import CraigConfig, CraigSelector
+    from repro_torch.core.distributed import distributed_select
+    from repro_torch.distributed.tree_select import TreeTopology, tree_select_mesh
+    from repro_torch.launch.tree import make_tree_mesh
+
+    rank = dist.get_rank()
+    feats = torch.from_numpy(tree_pool())
+    res: dict = {}
+    _tree_selections(dist.get_world_size(), feats, res)
+    data = init_device_mesh("cpu", (TREE_SHARDS,), mesh_dim_names=("data",))
+    two = distributed_select(feats, data, TREE_R_LOCAL, TREE_R_FINAL)
+    res["two_rounds"] = tuple(two)
+    cs = CraigSelector(CraigConfig(fraction=0.05, per_class=False), device="cpu")
+    sel = cs.select_distributed(feats, data)
+    res["select_distributed"] = (sel.indices, sel.weights, sel.coverage, sel.engine)
+    topo = TreeTopology((2, 2))
+    mesh = make_tree_mesh(topo.fanouts, device_type="cpu")
+    res["ragged"] = _error(lambda: tree_select_mesh(
+        feats[:TREE_N - 3], mesh, topo, TREE_R_LOCAL, TREE_R_FINAL))
+    res["misfit"] = _error(lambda: make_tree_mesh((4, 2), device_type="cpu"))
+    dist.destroy_process_group()
+    for world in (2, 1):  # smaller groups: ranks 0–1, then rank 0
+        if rank < world:
+            store = os.path.abspath(os.path.join(out, f"group{world}"))
+            dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank,
+                                    world_size=world)
+            _tree_selections(world, feats, res)
+            dist.destroy_process_group()
+    torch.save(res, os.path.join(out, f"tree_mesh.{rank}.pt"))
+
+
 def launch(case: str, out: str, world: int = 4, timeout: float = 240.0) -> None:
     """Run ``case`` in ``world`` processes of this script over gloo on the
     CPU (one torch thread each); raise with the failed rank's output."""
@@ -332,14 +435,16 @@ def launch(case: str, out: str, world: int = 4, timeout: float = 240.0) -> None:
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--case", choices=["sharded_step", "collectives"], required=True)
+    ap.add_argument("--case", choices=["sharded_step", "collectives", "tree_mesh"],
+                    required=True)
     ap.add_argument("--out", required=True)
     ap.add_argument("--device", default="cpu", choices=["cpu"],
                     help="gloo runs these checks on the CPU")
     args = ap.parse_args(argv)
     os.makedirs(args.out, exist_ok=True)
     dist.init_process_group("gloo")
-    {"sharded_step": sharded_step, "collectives": collectives}[args.case](args.out)
+    {"sharded_step": sharded_step, "collectives": collectives,
+     "tree_mesh": tree_mesh}[args.case](args.out)
 
 
 if __name__ == "__main__":
