@@ -160,11 +160,20 @@ version:
      two lower levels on ``cuda:0``, the fan-out-1 root level and the
      re-weighting's gathers through NCCL, the int8 wire, held bit for bit
      to ``tree_select_host`` on the same rows and topology, the collectives
-     counted against ``collectives_plan``; (b) ``launch/tree.py --driver
-     mesh --device cuda``: one process (fan-outs 2,2,1) held bit for bit
-     to ``tree_select_host``, and two processes, which must fail with the
-     one-rank-per-card error on a one-card host (with two or more cards
-     they run and are held the same way);
+     counted against ``collectives_plan``; (c) in the same group, slice
+     16's proxy extraction over a ``DeviceMesh`` of ranks:
+     ``ProxyExtractor(mesh=init_device_mesh("cuda", (1,), ("data",)))``
+     on phase 11 (d)'s cell (qwen3-1.7b at full width and depth, DP_DOCS
+     docs in LM_BATCH × LM_SEQ batches, one ``ce_proxy`` launch a batch,
+     one ``all_gather_into_tensor`` a dispatch) held bit for bit to the
+     single-device extract, then its features through
+     ``CraigSelector.select_distributed`` over the same mesh, held bit for
+     bit to the same call over a one-shard ``compat_mesh`` of the card, Σγ
+     = DP_DOCS; s and peak bytes printed beside 11 (d)'s; (b)
+     ``launch/tree.py --driver mesh --device cuda``: one process (fan-outs
+     2,2,1) held bit for bit to ``tree_select_host``, and two processes,
+     which must fail with the one-rank-per-card error on a one-card host
+     (with two or more cards they run and are held the same way);
  17. the report: one JSON line per the six kernels, then the last line,
      {"ok": true, "device": {...}}.
 
@@ -2478,9 +2487,10 @@ def distributed_selection(torch, ops, card, dev, feats) -> tuple:
         f"{out['mesh'][1]:.3f}s, launches {out['mesh'][2]}; single device {out['single'][1]:.3f}s, "
         f"launches {out['single'][2]}; features equal bit for bit; max_memory_allocated "
         f"{peak_d:.2f} GB; {card}")
+    dp = {"mesh_s": out["mesh"][1], "single_s": out["single"][1], "peak_gb": peak_d}
     del params, fm, fs, out
     torch.cuda.empty_cache()
-    return used, errs, {c: secs for c, (_, secs, _) in runs.items()}
+    return used, errs, {c: secs for c, (_, secs, _) in runs.items()}, dp
 
 
 # ---------------------------------------------------------------------------
@@ -3667,11 +3677,110 @@ def hold_tree_records(tag: str, res: list, host) -> dict:
     return recs[0]
 
 
-def tree_over_ranks(torch, ops, card, dev, host_11b: dict) -> dict:
+def extract_over_ranks(torch, ops, card, dev, dp_11d: dict) -> dict:
+    """Phase 16 (c), in (a)'s NCCL group of one: ``ProxyExtractor`` over a
+    one-axis ``DeviceMesh`` at phase 11 (d)'s cell, held bit for bit to the
+    single-device extract, its ``ce_proxy`` launches and
+    ``all_gather_into_tensor`` calls counted; then its features through
+    ``CraigSelector.select_distributed`` over the same mesh, held bit for
+    bit to the same call over a one-shard ``compat_mesh`` of the card.
+    Returns the rank extract's kernel launches."""
+    import numpy as np
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.craig import CraigConfig, CraigSelector
+    from repro_torch.core.extract import ProxyExtractor
+    from repro_torch.data import TokenStream
+    from repro_torch.distributed.tree_select import collectives_plan
+    from repro_torch.launch.mesh import compat_mesh
+    from repro_torch.models import init_params
+    from repro_torch.train.train_step import make_select_step
+
+    t_part = time.perf_counter()
+    cfg = get_config(LM_ARCH)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    ds = TokenStream(n_docs=DP_DOCS, seq_len=LM_SEQ, vocab_size=cfg.vocab_size)
+    batches, pool = DP_DOCS // LM_BATCH, np.arange(DP_DOCS)
+    mesh = init_device_mesh("cuda", (1,), mesh_dim_names=("data",))
+    ex = ProxyExtractor(make_select_step(cfg), ds, LM_BATCH, megabatch=batches, mesh=mesh)
+    gather, calls = dist.all_gather_into_tensor, []
+
+    def counted(out, inp, *args, **kwargs):
+        calls.append((str(inp.dtype), tuple(inp.shape), str(inp.device)))
+        return gather(out, inp, *args, **kwargs)
+
+    torch.cuda.reset_peak_memory_stats()
+    dist.all_gather_into_tensor = counted
+    try:
+        fr, ranked_s, launches = timed_select(torch, ops, lambda: ex.extract(params, pool))
+    finally:
+        dist.all_gather_into_tensor = gather
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    single = ProxyExtractor(make_select_step(cfg), ds, LM_BATCH, megabatch=batches)
+    fs, single_s, single_launches = timed_select(torch, ops,
+                                                 lambda: single.extract(params, pool))
+    if launches["ce_proxy"] != batches or single_launches["ce_proxy"] != batches:
+        raise AssertionError(f"[16c] launches {launches} (rank extract), {single_launches} "
+                             f"(single device), expected {batches} ce_proxy each")
+    dispatches = len(ex._plan(DP_DOCS))
+    if len(calls) != dispatches or any(dv != str(fr.device) for _, _, dv in calls):
+        raise AssertionError(f"[16c] {len(calls)} all_gather_into_tensor calls {calls}, "
+                             f"expected one a dispatch ({dispatches}) on {fr.device}")
+    if fr.shape != (DP_DOCS, cfg.d_model) or not bool(torch.isfinite(fr).all()):
+        raise AssertionError(f"[16c] features {tuple(fr.shape)} or non-finite")
+    if not torch.equal(fr, fs):
+        raise AssertionError("[16c] the rank extract differs from the single-device extract")
+    n_gathers = len(calls)
+    # again, now that both ran once (a run of this phase alone makes the
+    # process's first forward of the model in the first)
+    again, warm_s, _ = timed_select(torch, ops, lambda: ex.extract(params, pool))
+    if not torch.equal(again, fs):
+        raise AssertionError("[16c] a second rank extract differs from the first")
+    del params, fs, again
+
+    # the refresh's two rounds over the same group
+    selector = CraigSelector(CraigConfig(fraction=LM_FRACTION, per_class=False), device=dev)
+    calls.clear()
+    dist.all_gather_into_tensor = counted
+    try:
+        got, sel_s, _ = timed_select(torch, ops, lambda: selector.select_distributed(fr, mesh))
+    finally:
+        dist.all_gather_into_tensor = gather
+    want, one_s, _ = timed_select(torch, ops, lambda: selector.select_distributed(
+        fr, compat_mesh((1,), ("data",), devices=[dev])))
+    if not (np.array_equal(got.indices, want.indices)
+            and np.array_equal(got.weights, want.weights) and got.coverage == want.coverage):
+        raise AssertionError("[16c] select_distributed over the DeviceMesh differs from the "
+                             "one-shard compat_mesh")
+    hold_selection(got, DP_DOCS, selector._budget(DP_DOCS), "[16c]")
+    if len(calls) != collectives_plan(1, "none"):
+        raise AssertionError(f"[16c] two rounds: {len(calls)} all_gather_into_tensor calls "
+                             f"{calls}, planned {collectives_plan(1, 'none')}")
+    log(f"[16c] ProxyExtractor over a DeviceMesh ('data',) = (1,) of one NCCL rank, "
+        f"{DP_DOCS} docs ({batches} batches of {LM_BATCH} × {LM_SEQ}, {dispatches} dispatch) at "
+        f"{LM_ARCH} width, {cfg.n_layers} layers: {ranked_s:.3f}s (again: {warm_s:.3f}s), "
+        f"launches {launches}, "
+        f"{n_gathers} all_gather_into_tensor; bit for bit the single-device "
+        f"extract ({single_s:.3f}s); max_memory_allocated {peak:.2f} GB; phase 11 (d): "
+        f"{TREE_SHARDS}-shard Mesh {dp_11d['mesh_s']:.3f}s, single {dp_11d['single_s']:.3f}s, "
+        f"{dp_11d['peak_gb']:.2f} GB; select_distributed over the same mesh: {sel_s:.3f}s, "
+        f"{len(calls)} all_gather_into_tensor, {got.size} selected, Σγ "
+        f"{float(np.sum(got.weights, dtype=np.float64)):.0f}, L(S) {got.coverage:.4f}, engine "
+        f"{got.engine}; bit for bit the one-shard compat_mesh ({one_s:.3f}s); part "
+        f"{time.perf_counter() - t_part:.1f}s; {card}")
+    del fr
+    torch.cuda.empty_cache()
+    return launches
+
+
+def tree_over_ranks(torch, ops, card, dev, host_11b: dict, dp_11d: dict) -> dict:
     """Phase 16: ``tree_select_mesh`` over the ``DeviceMesh`` of
-    ``make_tree_mesh``, in process over NCCL in a group of one (a), and
-    ``launch/tree.py --driver mesh --device cuda`` (b).  Returns (a)'s
-    kernel launches."""
+    ``make_tree_mesh``, in process over NCCL in a group of one (a); in the
+    same group the rank extract and the two rounds over it (c,
+    :func:`extract_over_ranks`); ``launch/tree.py --driver mesh --device
+    cuda`` (b).  Returns the kernel launches of (a) and (c)."""
     import socket
 
     import torch.distributed as dist
@@ -3724,34 +3833,37 @@ def tree_over_ranks(torch, ops, card, dev, host_11b: dict) -> dict:
                 torch, ops, lambda: tree_select_mesh(x, mesh, topo, r_local, r_final, **kw))
         finally:
             dist.all_gather_into_tensor = gather
+        host, host_s, _ = timed_select(
+            torch, ops, lambda: tree_select_host(x, topo, r_local, r_final, **kw))
+        if not (torch.equal(got.indices, host.indices) and torch.equal(got.weights, host.weights)
+                and torch.equal(got.coverage, host.coverage)):
+            raise AssertionError("[16a] tree_select_mesh over NCCL differs from tree_select_host")
+        if (float(got.weights.sum()) != MESH_TREE_N or len(torch.unique(got.indices)) != r_final
+                or not bool(torch.isfinite(got.coverage))):
+            raise AssertionError(f"[16a] Σγ {float(got.weights.sum())} (expected {MESH_TREE_N}), "
+                                 f"{len(torch.unique(got.indices))} distinct of {r_final}, "
+                                 f"L(S) {float(got.coverage)}")
+        want = topo.n_leaves * r_local
+        if launches["fl_gains_argmax"] != want:
+            raise AssertionError(f"[16a] launches {launches}, expected {want} fl_gains_argmax")
+        if len(calls) != plan or any(dv != str(x.device) for _, _, dv in calls):
+            raise AssertionError(f"[16a] {len(calls)} all_gather_into_tensor calls {calls}, "
+                                 f"planned {plan} on {x.device}")
+        log(f"[16a] tree_select_mesh over a DeviceMesh {dict(zip(axes, mesh.mesh.shape))} of one "
+            f"NCCL rank (local levels {k}, fan-outs {topo.fanouts}, {topo.n_leaves} device leaves "
+            f"of {MESH_TREE_N // topo.n_leaves} × {x.shape[1]}, r_local {r_local}, r_final "
+            f"{r_final}, int8 wire): {mesh_s:.3f}s, launches {launches}; {len(calls)} "
+            f"all_gather_into_tensor = collectives_plan {plan} ({calls}); bit for bit "
+            f"tree_select_host on the same rows ({host_s:.3f}s); group set-up (NCCL "
+            f"init, make_tree_mesh, a first barrier) {setup_s:.3f}s; phase 11 (b)'s host tree "
+            f"(8, 4) on the whole pool: {host_11b['int8']:.3f}s int8, {host_11b['none']:.3f}s "
+            f"fp32; L(S) {float(got.coverage):.4f}, Σγ {float(got.weights.sum()):.0f}; {card}")
+        del x, got, host
+
+        # (c) the rank extract and the refresh's two rounds, in the same group
+        extracted = extract_over_ranks(torch, ops, card, dev, dp_11d)
     finally:
         dist.destroy_process_group()
-    host, host_s, _ = timed_select(
-        torch, ops, lambda: tree_select_host(x, topo, r_local, r_final, **kw))
-    if not (torch.equal(got.indices, host.indices) and torch.equal(got.weights, host.weights)
-            and torch.equal(got.coverage, host.coverage)):
-        raise AssertionError("[16a] tree_select_mesh over NCCL differs from tree_select_host")
-    if (float(got.weights.sum()) != MESH_TREE_N or len(torch.unique(got.indices)) != r_final
-            or not bool(torch.isfinite(got.coverage))):
-        raise AssertionError(f"[16a] Σγ {float(got.weights.sum())} (expected {MESH_TREE_N}), "
-                             f"{len(torch.unique(got.indices))} distinct of {r_final}, "
-                             f"L(S) {float(got.coverage)}")
-    want = topo.n_leaves * r_local
-    if launches["fl_gains_argmax"] != want:
-        raise AssertionError(f"[16a] launches {launches}, expected {want} fl_gains_argmax")
-    if len(calls) != plan or any(dv != str(x.device) for _, _, dv in calls):
-        raise AssertionError(f"[16a] {len(calls)} all_gather_into_tensor calls {calls}, "
-                             f"planned {plan} on {x.device}")
-    log(f"[16a] tree_select_mesh over a DeviceMesh {dict(zip(axes, mesh.mesh.shape))} of one "
-        f"NCCL rank (local levels {k}, fan-outs {topo.fanouts}, {topo.n_leaves} device leaves "
-        f"of {MESH_TREE_N // topo.n_leaves} × {x.shape[1]}, r_local {r_local}, r_final "
-        f"{r_final}, int8 wire): {mesh_s:.3f}s, launches {launches}; {len(calls)} "
-        f"all_gather_into_tensor = collectives_plan {plan} ({calls}); bit for bit "
-        f"tree_select_host on the same rows ({host_s:.3f}s); group set-up (NCCL "
-        f"init, make_tree_mesh, a first barrier) {setup_s:.3f}s; phase 11 (b)'s host tree "
-        f"(8, 4) on the whole pool: {host_11b['int8']:.3f}s int8, {host_11b['none']:.3f}s "
-        f"fp32; L(S) {float(got.coverage):.4f}, Σγ {float(got.weights.sum()):.0f}; {card}")
-    del x, got, host
 
     # (b) the launcher: one process over NCCL, and two beside it
     args = ["--driver", "mesh", "--fanouts", MESH_PROC_FANOUTS, "--n", str(PROC_N),
@@ -3786,7 +3898,7 @@ def tree_over_ranks(torch, ops, card, dev, host_11b: dict) -> dict:
         log(f"[16b] 2 processes on {cards} card: both refused before any group started "
             f"({two_s:.1f}s): {err.strip().splitlines()[-1]}")
     log(f"[16] phase total {time.perf_counter() - t_phase:.1f}s; {card}")
-    return launches
+    return {k: launches[k] + extracted[k] for k in launches}
 
 
 def main() -> None:
@@ -4072,7 +4184,8 @@ def main() -> None:
     mesh_sweep = start_mesh_sweep()  # phase 14 (a), host work beside 11–13
     atexit.register(stop_sweep, mesh_sweep)  # whatever phase fails
     t0 = time.perf_counter()
-    spread, spread_err, host_11b = distributed_selection(torch, ops, card, dev, cov_feats)
+    spread, spread_err, host_11b, dp_11d = distributed_selection(torch, ops, card, dev,
+                                                                 cov_feats)
     for kname in ("topk_sim", "pairwise_l2", "ce_proxy"):
         results[kname]["launches"] += spread[kname]
     for kname, e in spread_err.items():
@@ -4117,7 +4230,8 @@ def main() -> None:
     static_analysis(torch, card, dev)
 
     # -- 16. tree selection over a group of ranks -------------------------------
-    ranked = tree_over_ranks(torch, ops, card, dev, host_11b)
+    ranked = tree_over_ranks(torch, ops, card, dev, host_11b, dp_11d)
+    results["ce_proxy"]["launches"] += ranked["ce_proxy"]
 
     # -- 17. report ---------------------------------------------------------
     results["fl_gains_argmax"]["launches"] = (main_launches["fl_gains_argmax"]

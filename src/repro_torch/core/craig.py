@@ -112,6 +112,12 @@ class CoresetSelection:
     def size(self) -> int:
         return int(self.indices.shape[0])
 
+    def normalized_weights(self) -> np.ndarray:
+        """Weights scaled to mean 1 (γ_j · r / Σγ) for weighted-loss
+        training, computed in float64."""
+        w = self.weights.astype(np.float64)
+        return (w * (len(w) / max(w.sum(), 1e-12))).astype(np.float32)
+
 
 class CraigSelector:
     """Selects weighted coresets from gradient-proxy features.

@@ -12,7 +12,10 @@ rank per card; gloo on the CPU) the same body runs as the reference's
 program does, on every rank: one shard a rank, ``all_gather(tiled=True)``
 an ``all_gather_into_tensor`` over the axis's group, the merge replicated
 on every rank, and the re-weighting's partials gathered and summed in
-shard order, so both forms agree bit for bit.
+shard order, so both forms agree bit for bit.  The megabatch proxy
+extract that feeds the rounds (``make_distributed_extract``) takes either
+mesh the same way, so one refresh runs extraction and both rounds over
+one group.
 
   Round 1 (local): every shard runs greedy facility location over its
       partition of the pool, selecting ``r_local`` candidates with local γ
@@ -53,6 +56,7 @@ __all__ = [
     "distributed_select",
     "local_then_merge",
     "make_distributed_extract",
+    "make_rank_extract",
     "ROUND1_ENGINES",
     "normalize_round1_config",
     "resolve_round1_config",
@@ -126,6 +130,41 @@ def resolve_round1_config(
     return normalize_round1_config(ec, device)
 
 
+def _batches_per_shard(m: int, n_shards: int, axis_name: str) -> int:
+    if m % n_shards:
+        raise ValueError(
+            f"{m} batches do not split over the {n_shards}-shard axis {axis_name!r}"
+        )
+    return m // n_shards
+
+
+def _check_rank_axis(mesh, axis_name: str, where: str) -> None:
+    """A ``DeviceMesh`` of ranks must have the one dim ``axis_name``."""
+    if mesh.mesh_dim_names != (axis_name,):
+        raise ValueError(
+            f"{where}: a DeviceMesh must have the one axis ({axis_name!r},), "
+            f"got {mesh.mesh_dim_names}"
+        )
+
+
+def make_rank_extract(select_fn, mesh, axis_name: str = "data"):
+    """This rank's part of the extract over a one-axis ``DeviceMesh``.
+
+    Returns ``fn(params, own) → (M·B, D)``: ``own`` is this rank's
+    contiguous slice of a megabatch, (M/S, B, ...) tensors on
+    :func:`rank_device` with the parameters already there; the one scan
+    body runs over it and the slices' features are gathered over the
+    axis's group (``all_gather_into_tensor``, group-rank order = pool
+    order), the whole (M·B, D) on every rank.
+    """
+    from repro_torch.core.extract import make_scan_extract
+
+    _check_rank_axis(mesh, axis_name, "make_distributed_extract")
+    scan = make_scan_extract(select_fn)  # the one scan body (bit parity)
+    group = mesh.get_group(axis_name)
+    return lambda params, own: _gather(scan(params, own), group)
+
+
 def make_distributed_extract(select_fn, mesh, axis_name: str = "data"):
     """Data-parallel megabatch proxy extraction.
 
@@ -133,23 +172,39 @@ def make_distributed_extract(select_fn, mesh, axis_name: str = "data"):
     of tensors with leading dims (M, B) and M divisible by the
     ``axis_name`` size: shard s runs the one scan body
     (``core.extract.make_scan_extract``) over its contiguous slice of the
-    M batches on its device, with the parameters replicated there, and the
-    features concatenate in shard order on the first shard's device — pool
-    order, never through the host.
+    M batches on its device, and the features come back in shard order —
+    pool order, never through the host.
+
+    ``mesh`` is a ``launch.mesh.Mesh``, one process driving every shard
+    with the parameters replicated on each shard's device and the features
+    concatenated on the first one; or a one-axis ``DeviceMesh`` named
+    ``axis_name``, whose every rank calls ``fn`` with the same batches and
+    runs shard s = :func:`rank_index` on :func:`rank_device`, the features
+    gathered over the axis's group onto every rank
+    (:func:`make_rank_extract`), as the reference's
+    ``all_gather(tiled=True)`` leaves them.
     """
     from repro_torch.core.extract import make_scan_extract
+
+    if is_rank_mesh(mesh):
+        own_extract = make_rank_extract(select_fn, mesh, axis_name)
+        n_shards, s, dev = mesh.size(), rank_index(mesh), rank_device(mesh)
+
+        def fn(params: dict, batches: dict) -> torch.Tensor:
+            m = next(iter(batches.values())).shape[0]
+            per = _batches_per_shard(m, n_shards, axis_name)
+            return own_extract(
+                params, {k: v[s * per:(s + 1) * per].to(dev) for k, v in batches.items()}
+            )
+
+        return fn
 
     scan = make_scan_extract(select_fn)  # the one scan body (bit parity)
     devices = mesh.axis_devices(axis_name)
 
     def fn(params: dict, batches: dict) -> torch.Tensor:
         m = next(iter(batches.values())).shape[0]
-        if m % len(devices):
-            raise ValueError(
-                f"{m} batches do not split over the {len(devices)}-shard "
-                f"axis {axis_name!r}"
-            )
-        per = m // len(devices)
+        per = _batches_per_shard(m, len(devices), axis_name)
         replicas: dict[torch.device, dict] = {}
         outs = []
         for s, dev in enumerate(devices):
@@ -567,11 +622,7 @@ def distributed_select(
     """
     rank_mesh = is_rank_mesh(mesh)
     if rank_mesh:
-        if mesh.mesh_dim_names != (axis_name,):
-            raise ValueError(
-                f"distributed_select: a DeviceMesh must have the one axis "
-                f"({axis_name!r},), got {mesh.mesh_dim_names}"
-            )
+        _check_rank_axis(mesh, axis_name, "distributed_select")
         n_shards = mesh.size()
         devices = [rank_device(mesh)]
     else:

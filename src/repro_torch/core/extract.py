@@ -3,8 +3,8 @@
 Port of ``repro.core.extract``.  ``ProxyExtractor`` runs
 ``select_fn(params, batch) → (B, D)`` over the pool in batches of
 ``batch_size`` and returns the (n_pool, D) features in pool order, on the
-parameters' device (the mesh's first device with a ``mesh``), ready for
-``CraigSelector.select``.
+parameters' device (the mesh's first device with a ``Mesh``, this rank's
+device with a ``DeviceMesh``), ready for ``CraigSelector.select``.
 
 The reference folds ``megabatch`` batches into one ``lax.scan`` dispatch;
 PyTorch runs eagerly, so here :func:`make_scan_extract` is a loop of one
@@ -16,7 +16,11 @@ the pool wrap around to its head, and the tail rows are cut from the
 features.  With a ``mesh`` each megabatch's batches split over
 ``axis_name``, every shard runs the same scan body over its contiguous
 slice on its device, and the features concatenate in pool order
-(``core.distributed.make_distributed_extract``).
+(``core.distributed.make_distributed_extract``).  Over a one-axis
+``DeviceMesh`` of ranks every rank calls ``extract`` with the same pool and
+parameters, plans the same dispatches, assembles only its own slice of
+each, and ends with the whole gathered features, which then feed
+``CraigSelector.select_distributed`` over the same mesh.
 """
 from __future__ import annotations
 
@@ -55,9 +59,13 @@ class ProxyExtractor:
       batch_size: pool batch B.
       megabatch: pool batches assembled per host call.
       prefetch: assemble the next megabatch on a background thread.
-      mesh / axis_name: optional data-parallel mesh
-        (``launch.mesh.Mesh``): batches split over ``axis_name`` and each
-        shard extracts on its device with the parameters replicated there.
+      mesh / axis_name: optional data-parallel mesh: batches split over
+        ``axis_name``.  A ``launch.mesh.Mesh``: each shard extracts on its
+        device with the parameters replicated there.  A one-axis
+        ``DeviceMesh`` named ``axis_name``: this rank extracts its shard on
+        its device (``core.distributed.rank_device``), where the
+        parameters already are, and the features are gathered over the
+        axis's group.
     """
 
     def __init__(
@@ -79,16 +87,22 @@ class ProxyExtractor:
         self.batch_size = int(batch_size)
         self.megabatch = int(megabatch)
         self.prefetch = bool(prefetch)
-        if mesh is not None:
-            from repro_torch.core.distributed import make_distributed_extract
-
-            self._n_shards = int(mesh.shape[axis_name])
-            self._device = mesh.axis_devices(axis_name)[0]
-            self._scan = make_distributed_extract(select_fn, mesh, axis_name)
-        else:
+        self._shard = None  # this rank's shard over a DeviceMesh
+        if mesh is None:
             self._n_shards = 1
             self._device = None  # the parameters' device
             self._scan = make_scan_extract(select_fn)
+            return
+        from repro_torch.core import distributed as cd
+
+        if cd.is_rank_mesh(mesh):
+            self._scan = cd.make_rank_extract(select_fn, mesh, axis_name)
+            self._n_shards, self._shard = mesh.size(), cd.rank_index(mesh)
+            self._device = cd.rank_device(mesh)
+        else:
+            self._n_shards = int(mesh.shape[axis_name])
+            self._device = mesh.axis_devices(axis_name)[0]
+            self._scan = cd.make_distributed_extract(select_fn, mesh, axis_name)
 
     def _plan(self, n_pool: int) -> list[tuple[int, int]]:
         """[(first batch, batch count)] per host assembly.
@@ -107,6 +121,14 @@ class ProxyExtractor:
             lo += m
         return plan
 
+    def _own(self, lo: int, m: int) -> tuple[int, int]:
+        """The batches of dispatch (lo, m) this process assembles: all of
+        them, or over a ``DeviceMesh`` this rank's contiguous slice."""
+        if self._shard is None:
+            return lo, m
+        per = m // self._n_shards
+        return lo + self._shard * per, per
+
     def _assemble(self, pool_idx: np.ndarray, lo: int, m: int) -> dict:
         """Host work: one (m, B, ...) megabatch, index slots wrapping past
         the pool."""
@@ -122,7 +144,8 @@ class ProxyExtractor:
     @torch.no_grad()
     def extract(self, params: dict, pool_idx: np.ndarray) -> torch.Tensor:
         """Proxy features (n_pool, D) fp32 for ``pool_idx``, in pool order,
-        on the parameters' device (the mesh's first device with a mesh)."""
+        on the parameters' device (the mesh's first device with a ``Mesh``;
+        with a ``DeviceMesh``, the whole features on every rank's device)."""
         pool_idx = np.asarray(pool_idx)
         n_pool = len(pool_idx)
         if n_pool == 0:
@@ -135,7 +158,7 @@ class ProxyExtractor:
             def tagged():
                 try:
                     for lo, m in plan:
-                        yield None, self._assemble(pool_idx, lo, m)
+                        yield None, self._assemble(pool_idx, *self._own(lo, m))
                 except Exception as e:  # re-raised on the caller's thread
                     yield e, None
 
@@ -150,7 +173,8 @@ class ProxyExtractor:
                 pf.close()
         else:
             for lo, m in plan:
-                outs.append(self._run(params, self._assemble(pool_idx, lo, m), device))
+                outs.append(self._run(params, self._assemble(pool_idx, *self._own(lo, m)),
+                                      device))
         feats = torch.cat(outs, dim=0)[:n_pool]
         # lets tests corrupt extracted features (kind='nan') to exercise
         # the selector's validate_features guard

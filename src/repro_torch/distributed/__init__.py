@@ -1,9 +1,17 @@
-"""Distributed selection (port of ``repro.distributed``): the int8
-candidate and gradient codecs (``compression``), hierarchical tree
-selection over one process or a mesh (``tree_select``), and one process
-per leaf over a ``TCPStore`` (``process_tree``).  The model-parallel
-modules of the reference (``sharding``, ``collectives``, ``annotate``)
-need more than one card and are a later item (ROADMAP.md queue 1)."""
-from repro_torch.distributed import compression, process_tree, tree_select
+"""Distribution substrate (port of ``repro.distributed``): the sharding
+rules of the "fsdp × tensor" policy and their DTensor placements
+(``sharding``), explicit reduce-scatter and all-gather gradient sync
+(``collectives``), activation layout constraints (``annotate``), the
+int8 candidate and gradient codecs (``compression``), hierarchical tree
+selection in one process, over a single-controller mesh or over a
+``torch.distributed`` group one program a rank (``tree_select``), and one
+process per leaf over a ``TCPStore`` (``process_tree``)."""
+from repro_torch.distributed import (
+    collectives,
+    compression,
+    process_tree,
+    sharding,
+    tree_select,
+)
 
-__all__ = ["compression", "process_tree", "tree_select"]
+__all__ = ["collectives", "compression", "process_tree", "sharding", "tree_select"]

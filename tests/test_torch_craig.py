@@ -74,6 +74,20 @@ def test_budget_mode_matches_reference(per_class):
     assert_same_coreset(x, y if per_class else None, ref, got)
 
 
+@pytest.mark.parametrize("per_class", [False, True])
+def test_normalized_weights_equal_the_reference(per_class):
+    """γ·r/Σγ in float64, returned as float32: on the same selection the
+    port's equal the reference's, with mean 1."""
+    x, y = _data(300, 8, 3, seed=5)
+    ref, got = _pair(x, y if per_class else None, fraction=0.07, per_class=per_class)
+    assert_same_coreset(x, y if per_class else None, ref, got)
+    w = got.normalized_weights()
+    assert w.dtype == np.float32 and w.shape == (got.size,)
+    np.testing.assert_array_equal(w, ref.normalized_weights())
+    assert float(np.mean(w, dtype=np.float64)) == pytest.approx(1.0, rel=1e-6)
+    np.testing.assert_allclose(w, got.weights * got.size / 300.0, rtol=1e-6)
+
+
 @pytest.mark.parametrize("engine", ["features", "device"])
 def test_per_class_typed_engines_match_reference(engine):
     x, y = _data(300, 8, 2, seed=2)

@@ -1,8 +1,8 @@
 """One rank of the port's multi-process mesh checks, over gloo on the CPU.
 
 Run by ``tests/test_torch_sharded_step.py``,
-``tests/test_torch_collectives.py`` and ``tests/test_torch_tree_mesh.py``
-(four processes each), or by hand::
+``tests/test_torch_collectives.py``, ``tests/test_torch_tree_mesh.py`` and
+``tests/test_torch_extract_mesh.py`` (four processes each), or by hand::
 
     PYTHONPATH=src torchrun --nproc-per-node 4 tests/torch_mesh_worker.py \\
         --case sharded_step --device cpu --out /tmp/mesh
@@ -32,6 +32,16 @@ tests read into ``--out``: ``<case>.json`` (scalars) and ``<case>.pt``
   (``distributed_select`` and ``CraigSelector.select_distributed``) and
   the errors of a ragged pool and of fan-outs that do not fit the group.
   Every rank writes ``tree_mesh.<rank>.pt``.
+* ``extract_mesh``: ``ProxyExtractor`` and ``make_distributed_extract``
+  over a one-axis ``DeviceMesh`` (the four ranks, then ranks 0–1 in a
+  group of two, then rank 0 alone) with the small dense config and the
+  parameters the test writes to ``<out>/extract_params.pt``: the ragged
+  pool at each ``EXTRACT_RUNS`` megabatch, the features and the
+  ``all_gather_into_tensor`` calls, whether each rank's own slice of each
+  dispatch is the whole megabatch's; the extract fed to
+  ``CraigSelector.select_distributed`` over the same mesh; and the errors
+  of a batch count that does not split and of a misnamed mesh.  Every
+  rank writes ``extract_mesh.<rank>.pt``.
 """
 from __future__ import annotations
 
@@ -57,6 +67,16 @@ TREE_SHARDS = 4
 FAMILIES = {"dense": "qwen3-1.7b", "moe": "moonshot-v1-16b-a3b",
             "griffin": "recurrentgemma-9b", "xlstm": "xlstm-1.3b"}
 B, T = 4, 8
+# The extract_mesh case: tests/test_torch_distributed.py's small dense
+# config (fp32 compute) and its ragged pool of 19 docs in batches of 4,
+# whose plan pads 5 batches to 8 over four shards; the composition pool is
+# the whole stream, 40 docs over 4 shards.
+EXTRACT_CFG = dict(name="tiny", family="dense", n_layers=2, d_model=32, n_heads=2,
+                   n_kv_heads=2, d_ff=64, vocab_size=128, logit_chunk=16)
+EXTRACT_DOCS, EXTRACT_SEQ, EXTRACT_B = 40, 16, 4
+EXTRACT_POOL = np.arange(0, EXTRACT_DOCS, 2)[:19]
+EXTRACT_RUNS = ((3, True), (3, False), (1, True))  # (megabatch, prefetch)
+EXTRACT_FRACTION = 0.2
 
 
 def _batch(cfg, seed: int) -> dict:
@@ -404,6 +424,92 @@ def tree_mesh(out: str) -> None:
     torch.save(res, os.path.join(out, f"tree_mesh.{rank}.pt"))
 
 
+def extract_setup(params_path: str):
+    """(select_fn, dataset, params) of the extract_mesh case, fp32 compute:
+    the test's parameters (the reference's, converted) where it wrote them,
+    else the port's own seeded ones (a run by hand)."""
+    from repro_torch.data.synthetic import TokenStream
+    from repro_torch.models import init_params, model
+    from repro_torch.models.config import ModelConfig
+    from repro_torch.train.train_step import make_select_step
+
+    model.COMPUTE_DTYPE = torch.float32
+    cfg = ModelConfig(**EXTRACT_CFG)
+    ds = TokenStream(n_docs=EXTRACT_DOCS, seq_len=EXTRACT_SEQ, vocab_size=cfg.vocab_size)
+    params = (torch.load(params_path) if os.path.exists(params_path)
+              else init_params(cfg, torch.Generator().manual_seed(1)))
+    return make_select_step(cfg, "auto"), ds, params
+
+
+def _extracts(world: int, select, ds, params, res: dict) -> None:
+    """The extract_mesh checks of one group of ``world`` ranks."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.core.craig import CraigConfig, CraigSelector
+    from repro_torch.core.distributed import make_distributed_extract
+    from repro_torch.core.extract import ProxyExtractor
+
+    mesh = init_device_mesh("cpu", (world,), mesh_dim_names=("data",))
+    s = dist.get_rank()
+    gather, calls = dist.all_gather_into_tensor, [0]
+
+    def counted(*args, **kwargs):
+        calls[0] += 1
+        return gather(*args, **kwargs)
+
+    for mb, prefetch in EXTRACT_RUNS:
+        ex = ProxyExtractor(select, ds, EXTRACT_B, megabatch=mb, prefetch=prefetch, mesh=mesh)
+        calls[0] = 0
+        dist.all_gather_into_tensor = counted
+        try:
+            feats = ex.extract(params, EXTRACT_POOL)
+        finally:
+            dist.all_gather_into_tensor = gather
+        plan = ex._plan(len(EXTRACT_POOL))
+        own = True
+        for lo, m in plan:  # this rank's slice of each dispatch, against the whole's
+            whole, mine = ex._assemble(EXTRACT_POOL, lo, m), ex._assemble(
+                EXTRACT_POOL, *ex._own(lo, m))
+            per = m // world
+            own &= all(np.array_equal(mine[k], v[s * per:(s + 1) * per])
+                       for k, v in whole.items())
+        res[(world, mb, prefetch)] = (feats, calls[0], plan, own)
+    # the function form on one whole megabatch of 2·world batches
+    fn = make_distributed_extract(select, mesh)
+    batches = {k: torch.as_tensor(v)
+               for k, v in ex._assemble(EXTRACT_POOL, 0, 2 * world).items()}
+    res[(world, "fn")] = fn(params, batches)
+    if world > 1:
+        res[(world, "ragged")] = _error(
+            lambda: fn(params, {k: v[:world + 1] for k, v in batches.items()}))
+    bad = init_device_mesh("cpu", (world,), mesh_dim_names=("model",))
+    res[(world, "misnamed")] = (
+        _error(lambda: ProxyExtractor(select, ds, EXTRACT_B, mesh=bad)),
+        _error(lambda: make_distributed_extract(select, bad)),
+        _error(lambda: ProxyExtractor(select, ds, EXTRACT_B, mesh=mesh, axis_name="pool")))
+    # one refresh over the group: the extract, then the two rounds
+    ex = ProxyExtractor(select, ds, EXTRACT_B, megabatch=3, mesh=mesh)
+    feats = ex.extract(params, np.arange(EXTRACT_DOCS))
+    sel = CraigSelector(CraigConfig(fraction=EXTRACT_FRACTION, per_class=False),
+                        device="cpu").select_distributed(feats, mesh)
+    res[(world, "composition")] = (feats, sel.indices, sel.weights, sel.coverage, sel.engine)
+
+
+def extract_mesh(out: str) -> None:
+    rank = dist.get_rank()
+    select, ds, params = extract_setup(os.path.join(out, "extract_params.pt"))
+    res: dict = {}
+    _extracts(dist.get_world_size(), select, ds, params, res)
+    dist.destroy_process_group()
+    for world in (2, 1):  # smaller groups: ranks 0–1, then rank 0
+        if rank < world:
+            store = os.path.abspath(os.path.join(out, f"extract{world}"))
+            dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank,
+                                    world_size=world)
+            _extracts(world, select, ds, params, res)
+            dist.destroy_process_group()
+    torch.save(res, os.path.join(out, f"extract_mesh.{rank}.pt"))
+
+
 def launch(case: str, out: str, world: int = 4, timeout: float = 240.0) -> None:
     """Run ``case`` in ``world`` processes of this script over gloo on the
     CPU (one torch thread each); raise with the failed rank's output."""
@@ -435,8 +541,8 @@ def launch(case: str, out: str, world: int = 4, timeout: float = 240.0) -> None:
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--case", choices=["sharded_step", "collectives", "tree_mesh"],
-                    required=True)
+    ap.add_argument("--case", required=True,
+                    choices=["sharded_step", "collectives", "tree_mesh", "extract_mesh"])
     ap.add_argument("--out", required=True)
     ap.add_argument("--device", default="cpu", choices=["cpu"],
                     help="gloo runs these checks on the CPU")
@@ -444,7 +550,7 @@ def main(argv=None) -> None:
     os.makedirs(args.out, exist_ok=True)
     dist.init_process_group("gloo")
     {"sharded_step": sharded_step, "collectives": collectives,
-     "tree_mesh": tree_mesh}[args.case](args.out)
+     "tree_mesh": tree_mesh, "extract_mesh": extract_mesh}[args.case](args.out)
 
 
 if __name__ == "__main__":
