@@ -29,6 +29,7 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
+from repro_torch import spans
 from repro_torch.data.pipeline import Prefetcher, to_device
 from repro_torch.faults import fault_value
 
@@ -134,48 +135,51 @@ class ProxyExtractor:
         the pool."""
         b = self.batch_size
         flat = np.arange(lo * b, (lo + m) * b) % len(pool_idx)
-        batch = self.dataset.batch(pool_idx[flat])
-        return {k: np.asarray(v).reshape((m, b) + np.shape(v)[1:])
-                for k, v in batch.items()}
+        with spans.span("extract.assemble"):
+            batch = self.dataset.batch(pool_idx[flat])
+            return {k: np.asarray(v).reshape((m, b) + np.shape(v)[1:])
+                    for k, v in batch.items()}
 
     def _run(self, params, mb: dict, device) -> torch.Tensor:
-        return self._scan(params, to_device(mb, device))
+        with spans.span("extract.dispatch"):
+            return self._scan(params, to_device(mb, device))
 
     @torch.no_grad()
     def extract(self, params: dict, pool_idx: np.ndarray) -> torch.Tensor:
         """Proxy features (n_pool, D) fp32 for ``pool_idx``, in pool order,
         on the parameters' device (the mesh's first device with a ``Mesh``;
         with a ``DeviceMesh``, the whole features on every rank's device)."""
-        pool_idx = np.asarray(pool_idx)
-        n_pool = len(pool_idx)
-        if n_pool == 0:
-            raise ValueError("empty candidate pool")
-        device = (next(iter(params.values())).device if self._device is None
-                  else self._device)
-        plan = self._plan(n_pool)
-        outs: list[torch.Tensor] = []
-        if self.prefetch and len(plan) > 1:
-            def tagged():
-                try:
-                    for lo, m in plan:
-                        yield None, self._assemble(pool_idx, *self._own(lo, m))
-                except Exception as e:  # re-raised on the caller's thread
-                    yield e, None
+        with spans.span("extract"):
+            pool_idx = np.asarray(pool_idx)
+            n_pool = len(pool_idx)
+            if n_pool == 0:
+                raise ValueError("empty candidate pool")
+            device = (next(iter(params.values())).device if self._device is None
+                      else self._device)
+            plan = self._plan(n_pool)
+            outs: list[torch.Tensor] = []
+            if self.prefetch and len(plan) > 1:
+                def tagged():
+                    try:
+                        for lo, m in plan:
+                            yield None, self._assemble(pool_idx, *self._own(lo, m))
+                    except Exception as e:  # re-raised on the caller's thread
+                        yield e, None
 
-            pf = Prefetcher(tagged(), depth=2)
-            try:
-                for _ in plan:
-                    err, mb = pf.next()
-                    if err is not None:
-                        raise err
-                    outs.append(self._run(params, mb, device))
-            finally:
-                pf.close()
-        else:
-            for lo, m in plan:
-                outs.append(self._run(params, self._assemble(pool_idx, *self._own(lo, m)),
-                                      device))
-        feats = torch.cat(outs, dim=0)[:n_pool]
+                pf = Prefetcher(tagged(), depth=2)
+                try:
+                    for _ in plan:
+                        err, mb = pf.next()
+                        if err is not None:
+                            raise err
+                        outs.append(self._run(params, mb, device))
+                finally:
+                    pf.close()
+            else:
+                for lo, m in plan:
+                    outs.append(self._run(params, self._assemble(pool_idx, *self._own(lo, m)),
+                                          device))
+            feats = torch.cat(outs, dim=0)[:n_pool]
         # lets tests corrupt extracted features (kind='nan') to exercise
         # the selector's validate_features guard
         return fault_value("extract.features", feats, n_pool=n_pool)

@@ -41,6 +41,7 @@ from typing import Any, Callable, Literal
 import numpy as np
 import torch
 
+from repro_torch import spans
 from repro_torch.faults import FailurePolicy, fault_point
 
 __all__ = ["AsyncRefresher", "RefreshResult", "snapshot", "weak_callback"]
@@ -243,27 +244,29 @@ class AsyncRefresher:
 
     def _run_job(self, version: int, fn: Callable[[], Any]) -> None:
         policy = self._policy
-        t0 = time.time()
+        t0 = time.perf_counter()
         error: BaseException | None = None
         attempts = 0
         for attempt in range(policy.max_retries + 1):
             attempts += 1
             try:
-                # inside the retry loop: max_retries heals an injected fault
-                fault_point("refresh.worker", version=version, attempt=attempt)
-                value = fn()
+                with spans.span("refresh"):
+                    # inside the retry loop: max_retries heals an injected fault
+                    fault_point("refresh.worker", version=version, attempt=attempt)
+                    value = fn()
             except BaseException as e:  # noqa: BLE001 — routed via policy
                 error = e
                 if attempt < policy.max_retries:
                     time.sleep(policy.backoff_s(attempt))
                 continue
-            res = RefreshResult(version, value, time.time() - t0, attempts=attempts)
+            res = RefreshResult(version, value, time.perf_counter() - t0, attempts=attempts)
             try:
                 if self._on_complete is not None:
-                    self._on_complete(res)
+                    with spans.span("publish"):
+                        self._on_complete(res)
             except BaseException as e:  # noqa: BLE001 — not retryable
                 self._exhaust(
-                    RefreshResult(version, None, time.time() - t0, error=e,
+                    RefreshResult(version, None, time.perf_counter() - t0, error=e,
                                   attempts=attempts),
                     fn, retryable=False,
                 )
@@ -272,7 +275,8 @@ class AsyncRefresher:
                 self._result = res
             return
         self._exhaust(
-            RefreshResult(version, None, time.time() - t0, error=error, attempts=attempts),
+            RefreshResult(version, None, time.perf_counter() - t0, error=error,
+                          attempts=attempts),
             fn, retryable=True,
         )
 
@@ -306,10 +310,11 @@ class AsyncRefresher:
         if pending is None:
             return
         failed, fn = pending
-        t0 = time.time()
+        t0 = time.perf_counter()
         try:
             value = fn()
-            res = RefreshResult(failed.version, value, failed.wall_time_s + time.time() - t0,
+            res = RefreshResult(failed.version, value,
+                                failed.wall_time_s + time.perf_counter() - t0,
                                 attempts=failed.attempts + 1, fell_back=True)
             if self._on_complete is not None:
                 self._on_complete(res)
@@ -318,7 +323,7 @@ class AsyncRefresher:
         except BaseException as e:  # noqa: BLE001 — re-raised at wait()
             with self._lock:
                 self._result = RefreshResult(
-                    failed.version, None, failed.wall_time_s + time.time() - t0,
+                    failed.version, None, failed.wall_time_s + time.perf_counter() - t0,
                     error=e, attempts=failed.attempts + 1, fell_back=True,
                 )
 

@@ -47,6 +47,7 @@ from typing import Any, Callable
 
 import torch
 
+from repro_torch import spans
 from repro_torch.distributed import annotate
 from repro_torch.models import loss_fn as model_loss_fn
 from repro_torch.models import proxy_features, proxy_features_fused
@@ -176,8 +177,10 @@ def make_train_step(cfg: ModelConfig, optimizer: Optimizer, microbatches: int = 
         if grad_transform is not None:  # each replica's own gradient for the hook
             params = {k: _gathered_over_dp(v) for k, v in params.items()}
         leaves = [params[k].detach().requires_grad_(True) for k in names]
-        total, metrics = model_loss_fn(dict(zip(names, leaves)), cfg, batch)
-        grads = torch.autograd.grad(total, leaves)
+        with spans.span("step.forward"):
+            total, metrics = model_loss_fn(dict(zip(names, leaves)), cfg, batch)
+        with spans.span("step.backward"):
+            grads = torch.autograd.grad(total, leaves)
         return total.detach(), metrics, dict(zip(names, grads))
 
     def accumulated(params, batch):
@@ -205,7 +208,8 @@ def make_train_step(cfg: ModelConfig, optimizer: Optimizer, microbatches: int = 
             loss, metrics, grads = grads_of(params, batch)
         if grad_transform is not None:
             grads = grad_transform({k: _per_replica(g) for k, g in grads.items()})
-        params, opt_state = optimizer.update(_placed_like(grads, params), opt_state, params)
+        with spans.span("step.optimizer"):
+            params, opt_state = optimizer.update(_placed_like(grads, params), opt_state, params)
         return params, opt_state, {
             "loss": loss,
             "aux_loss": metrics["aux_loss"].detach(),

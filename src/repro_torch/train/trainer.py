@@ -44,6 +44,7 @@ from typing import Any, Callable, Literal
 import numpy as np
 import torch
 
+from repro_torch import spans
 from repro_torch._device import resolve_device
 from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.core.craig import CoresetSelection, CraigConfig, CraigSelector
@@ -208,7 +209,8 @@ class Trainer:
             if r0 > 0:
                 init = np.asarray(prev.indices[:r0])
         selector = CraigSelector(self.tcfg.craig, device=self.device)
-        sel = selector.select(feats, labels=labels, init_selected=init)
+        with spans.span("select"):
+            sel = selector.select(feats, labels=labels, init_selected=init)
         t2 = time.perf_counter()
         self._prev_selection = sel
         return sel, pool_idx, {"extract_time_s": t1 - t0, "selection_time_s": t2 - t1}
@@ -322,10 +324,11 @@ class Trainer:
     def _install_refresh(self) -> None:
         """Epoch-boundary install: wait out an in-flight selection, then
         swap the staged coreset in."""
-        t0 = time.time()
-        self.refresher.wait()
-        stall = time.time() - t0
-        p = self.sampler.install_pending()
+        with spans.span("step.install"):
+            t0 = time.perf_counter()
+            self.refresher.wait()
+            stall = time.perf_counter() - t0
+            p = self.sampler.install_pending()
         if p is None:
             return
         meta = p.get("meta") or {}
@@ -453,35 +456,8 @@ class Trainer:
     def run(self, n_steps: int) -> list[dict]:
         tc = self.tcfg
         for _ in range(n_steps):
-            epoch = self.sampler.epoch
-            # install the previous trigger's selection at this epoch
-            # boundary, then (on cadence) snapshot params and start the next
-            if tc.use_craig and tc.select_every_epochs > 0 and self.sampler.step_in_epoch == 0:
-                self._install_refresh()
-                if epoch % tc.select_every_epochs == 0 and epoch != self._last_epoch_selected:
-                    if tc.streaming_ingest:
-                        self._stream_submit()
-                    else:
-                        self.refresher.submit(self.params)
-                    self._last_epoch_selected = epoch
-
-            idx, w = self.sampler.next_batch()
-            batch = self.dataset.batch(idx)
-            batch["weights"] = w
-            batch.pop("indices", None)
-            batch = to_device(batch, self.device)
-            t0 = time.time()
-            self.params, self.opt_state, metrics = self.train_step(
-                self.params, self.opt_state, batch
-            )
-            loss = float(metrics["loss"])  # waits for the step
-            dt = time.time() - t0
-            if tc.step_timeout_s is not None and dt > tc.step_timeout_s:
-                self.straggler_events.append(self.step)
-            self.step += 1
-            self.metrics_log.append(
-                {"event": "step", "step": self.step, "loss": loss, "epoch": epoch, "time_s": dt}
-            )
+            with spans.span("step"):
+                self._step()
             if tc.eval_every and self.step % tc.eval_every == 0:
                 self.evaluate()
             if self.ckpt is not None and self.step % tc.checkpoint_every == 0:
@@ -492,3 +468,40 @@ class Trainer:
         if self.ckpt is not None:
             self.ckpt.wait()
         return self.metrics_log
+
+    def _step(self) -> None:
+        """One step of ``run``: the install check and refresh trigger, the
+        batch, the train step and the step's record."""
+        tc = self.tcfg
+        epoch = self.sampler.epoch
+        # install the previous trigger's selection at this epoch
+        # boundary, then (on cadence) snapshot params and start the next
+        if tc.use_craig and tc.select_every_epochs > 0 and self.sampler.step_in_epoch == 0:
+            self._install_refresh()
+            if epoch % tc.select_every_epochs == 0 and epoch != self._last_epoch_selected:
+                with spans.span("step.submit"):
+                    if tc.streaming_ingest:
+                        self._stream_submit()
+                    else:
+                        self.refresher.submit(self.params)
+                self._last_epoch_selected = epoch
+
+        t_data = time.perf_counter()
+        with spans.span("step.data"):
+            idx, w = self.sampler.next_batch()
+            batch = self.dataset.batch(idx)
+            batch["weights"] = w
+            batch.pop("indices", None)
+            batch = to_device(batch, self.device)
+        t0 = time.perf_counter()
+        self.params, self.opt_state, metrics = self.train_step(
+            self.params, self.opt_state, batch
+        )
+        with spans.span("step.sync"):
+            loss = float(metrics["loss"])  # waits for the step
+        dt = time.perf_counter() - t0
+        if tc.step_timeout_s is not None and dt > tc.step_timeout_s:
+            self.straggler_events.append(self.step)
+        self.step += 1
+        self.metrics_log.append({"event": "step", "step": self.step, "loss": loss,
+                                 "epoch": epoch, "time_s": dt, "data_time_s": t0 - t_data})
