@@ -174,12 +174,19 @@ version:
      2,2,1) held bit for bit to ``tree_select_host``, and two processes,
      which must fail with the one-rank-per-card error on a one-card host
      (with two or more cards they run and are held the same way);
- 17. the report: one JSON line per the six kernels, then the last line,
+ 17. the report: one JSON line per the eight kernels, then the last line,
      {"ok": true, "device": {...}}.
 
 Before phases 2–8, ``kernels`` compares ``topk_sim`` (both list routes:
 k ≤ 128 and k > 128 up to k = n), ``pairwise_l2`` and ``fl_replay`` with
-their plain versions at ragged shapes.
+their plain versions at ragged shapes, and AdamW's ``adamw_sq_norm`` and
+``adamw_update`` with the plain loop (``check_adamw``: ragged leaves, a
+slice of qwen2-7b's leaves and a (1, 1) DTensor mesh, 5 steps each; both
+passes timed at the benchmark's qwen2-7b and granite-3-8b leaf sets
+beside their byte bounds, the loop and the library's multi-tensor calls).
+Every ``Trainer.run`` of phases 6, 9 and 10 launches ``adamw_sq_norm`` and
+``adamw_update`` once a step (the clip is set), and the report counts those
+launches.
 
 Any failure raises and exits non-zero.  Run from the repository root:
 
@@ -334,6 +341,17 @@ PAIR_CHECKS = ((1, 1, 1), (37, 5, 3), (130, 129, 22), (999, 1001, 7), (1000, 777
 # ragged 32-dim chunk; m = 1,000 ends in a ragged candidate tile
 REPLAY_CHECKS = ((1, 1, 1), (37, 5, 3), (130, 129, 22), (1000, 300, 54), (3000, 1024, 2048),
                  (1000, 300, 2050), (3001, 1000, 2048))
+# AdamW's kernels (adamw.cu): ragged leaves (one more, offset by a float, is
+# not 16-byte aligned; one is empty), steps of each held comparison, the
+# benchmark's cut depths timed at full width, and the comparison's bound on
+# max|kernel − twin| / max|twin| of p, m and v a leaf: a few fp32 ulps (the
+# norm's summation order; contractions inside PyTorch's elementwise kernels).
+ADAMW_RAGGED = (1, 3, 4, 5, 4097, 65_535, 65_536, 65_537, 300_001, 0)
+ADAMW_STEPS = 5
+ADAMW_CUTS = {"qwen2-7b": 8, "granite-3-8b": 12}
+ADAMW_TOL = 1e-5
+ADAMW_KERNELS = ("adamw_sq_norm", "adamw_update")
+ADAMW_RISE_MB = 64  # allocator high-water mark an update may add
 # Slice 3, path 2: the streaming coreset service at the width of the
 # qwen3-1.7b proxies (ce_proxy's D); eps = 0.15 gives 56 sieves.
 SVC_BUDGET, SVC_DIM, SVC_DELTAS, SVC_ROWS, SVC_CLUSTERS = 1024, 2048, 16, 4096, 64
@@ -491,13 +509,17 @@ REPLACES = {
     "topk_sim": "src/repro/kernels/topk_sim.py:115",
     "pairwise_l2": "src/repro/kernels/pairwise_l2.py:38",
     "fl_replay": "src/repro/kernels/fl_gains.py:338",
+    "adamw_sq_norm": "none: src/repro/optim/optimizers.py:57 (global_norm), left to XLA",
+    "adamw_update": "none: src/repro/optim/optimizers.py:153 (adamw's update), left to XLA",
 }
 SOURCES = {"fl_gains": "src/repro_torch/kernels/csrc/fl_gains.cu",
            "fl_gains_argmax": "src/repro_torch/kernels/csrc/fl_gains.cu",
            "ce_proxy": "src/repro_torch/kernels/csrc/ce_proxy.cu",
            "topk_sim": "src/repro_torch/kernels/csrc/topk_sim.cu",
            "pairwise_l2": "src/repro_torch/kernels/csrc/pairwise_l2.cu",
-           "fl_replay": "src/repro_torch/kernels/csrc/fl_replay.cu"}
+           "fl_replay": "src/repro_torch/kernels/csrc/fl_replay.cu",
+           "adamw_sq_norm": "src/repro_torch/kernels/csrc/adamw.cu",
+           "adamw_update": "src/repro_torch/kernels/csrc/adamw.cu"}
 
 
 def log(msg: str) -> None:
@@ -961,6 +983,10 @@ def train_lm(torch, ops, card, dev, cfg, docs: int, mode: str, n_steps: int, sch
     if launches["ce_proxy"] != n_refresh * pool_batches:
         raise AssertionError(f"{tag}: ce_proxy launched {launches}; expected "
                              f"{pool_batches} per refresh × {n_refresh}")
+    adamw_launches = {k: launches[k] for k in ADAMW_KERNELS}
+    # one of each a step (adamw's clip is 1.0), else a CUDA leaf took the loop
+    if set(adamw_launches.values()) != {n_steps}:
+        raise AssertionError(f"{tag}: {adamw_launches} launched in {n_steps} steps")
     step_s = statistics.median(m["time_s"] for m in steps[2:])
     refreshes = installs + [{"version": pending["version"], **pending["meta"]}]
     per = [(r["version"], round(r["extract_time_s"], 3), round(r["selection_time_s"], 3))
@@ -975,7 +1001,7 @@ def train_lm(torch, ops, card, dev, cfg, docs: int, mode: str, n_steps: int, sch
     log(f"[{phase}] {tag}: median {step_s:.4f} s/step ({LM_BATCH * LM_SEQ / step_s:.0f} "
         f"tokens/s); per refresh (version, extract s, select s): {per}; install stalls "
         f"{stalls} s; max_memory_allocated {peak_gb:.2f} GB; {card}")
-    out = {"losses": losses, "launches": launches["ce_proxy"]}
+    out = {"losses": losses, "launches": launches["ce_proxy"], "adamw": adamw_launches}
     if heads:
         batch = to_device(ds.batch(np.arange(LM_BATCH)), dev)
         held = hold_fused_proxies(torch, cfg, trainer.params, batch)
@@ -1422,6 +1448,226 @@ def check_slice3_kernels(torch, ops, dev, gen) -> dict:
         log(f"[2] fl_replay n={n} m={m} d={d}: max |Δgain| {gerr:.3e}, "
             f"{flips.numel()} best positions differ (near-ties)")
     return err
+
+
+def adamw_leaves(torch, dev, shapes: dict, seed: int, unaligned: bool = False) -> dict:
+    """Seeded fp32 leaves of ``shapes`` on the card; with ``unaligned`` one
+    more leaf that starts 4 bytes past a 16-byte boundary."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    out = {k: 0.02 * torch.randn(s, device=dev, generator=gen) for k, s in shapes.items()}
+    if unaligned:
+        out["unaligned"] = torch.randn(70_001, device=dev, generator=gen)[1:]
+    return out
+
+
+def hold_adamw(torch, dev, params: dict, grad_scale: float, clip, wd: float, tag: str,
+               mesh=None) -> dict:
+    """ADAMW_STEPS steps of ``optim.adamw`` (the kernels) on ``params`` and of
+    the plain twin (``adamw_loop``) on a copy, the same seeded gradients each
+    step; on a ``mesh`` the kernels' leaves are DTensors (2-D and larger
+    leaves split on its "model" dim, the rest replicated).  Each step's
+    gradients also go through ``adamw_sq_norm`` alone, its √Σ partials held
+    to ``global_norm``.  Returns the largest max|Δ| and max|Δ| / max|twin|
+    of p, m and v over the leaves, and the norm's largest |Δ| and |Δ| /
+    norm; raises past ADAMW_TOL (relative) or when a step does not launch
+    ``adamw_update`` once."""
+    from repro_torch.kernels import adamw as kadam
+    from repro_torch.optim import adamw, constant, global_norm
+    from repro_torch.optim.optimizers import adamw_loop
+
+    lr, b1, b2, eps = 1e-2, 0.9, 0.999, 1e-8
+    twin = {k: p.clone() for k, p in params.items()}
+    tm = {k: torch.zeros_like(p) for k, p in params.items()}
+    tv = {k: torch.zeros_like(p) for k, p in params.items()}
+    if mesh is not None:
+        from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+        def placed(t):
+            pl = [Replicate(), Shard(0) if t.dim() > 1 else Replicate()]
+            return distribute_tensor(t, mesh, pl, src_data_rank=None)
+    else:
+        def placed(t):
+            return t
+    params = {k: placed(p) for k, p in params.items()}
+    opt = adamw(constant(lr), b1=b1, b2=b2, eps=eps, weight_decay=wd, clip=clip)
+    state = opt.init(params)
+    gen = torch.Generator(device=dev).manual_seed(31)
+    norm_abs = norm_rel = 0.0
+    for i in range(ADAMW_STEPS):
+        grads = {k: grad_scale * torch.randn(t.shape, device=dev, generator=gen)
+                 for k, t in twin.items()}
+        norm = float(torch.sqrt(kadam._sq_norm_op(list(grads.values())).sum()))
+        want = float(global_norm(grads))
+        norm_abs = max(norm_abs, abs(norm - want))
+        norm_rel = max(norm_rel, abs(norm - want) / want)
+        before = kadam.LAUNCHES["adamw_update"]
+        params, state = opt.update({k: placed(g.clone()) for k, g in grads.items()},
+                                   state, params)
+        if kadam.LAUNCHES["adamw_update"] != before + 1:
+            raise AssertionError(f"adamw {tag}: step {i} launched adamw_update "
+                                 f"{kadam.LAUNCHES['adamw_update'] - before} times")
+        bc1 = float(1 - torch.tensor(b1, dtype=torch.float32) ** (i + 1))
+        bc2 = float(1 - torch.tensor(b2, dtype=torch.float32) ** (i + 1))
+        adamw_loop(twin, grads, tm, tv, lr=lr, b1=b1, b2=b2, bc1=bc1, bc2=bc2, eps=eps,
+                   weight_decay=wd, clip=clip)
+    torch.cuda.synchronize()
+
+    def full(t):
+        return t.full_tensor() if mesh is not None else t
+
+    out = {"norm_abs": norm_abs, "norm_rel": norm_rel}
+    for what, got, want in (("p", params, twin), ("m", state.inner["m"], tm),
+                            ("v", state.inner["v"], tv)):
+        gaps = [(float((full(got[k]) - want[k]).abs().max()), float(want[k].abs().max()))
+                for k in want if want[k].numel()]
+        out[f"{what}_abs"] = max(d for d, _ in gaps)
+        out[f"{what}_rel"] = max(d / (w + 1e-30) for d, w in gaps)
+    rel = {k: v for k, v in out.items() if k.endswith("_rel")}
+    if max(rel.values()) > ADAMW_TOL:
+        raise AssertionError(f"adamw {tag}: kernels against the twin {rel} > {ADAMW_TOL}")
+    return out
+
+
+def time_adamw(torch, dev, name: str, layers: int, mem_bw: float) -> dict:
+    """Both passes at a benchmark configuration's full leaf set, CUDA-event
+    timed beside their byte bounds; beside them the plain code each
+    replaces (``global_norm``; the loop without its clip, and with it), the
+    library's multi-tensor calls, which the port never makes
+    (``torch._foreach_norm``; ``torch._fused_adamw_``, which cannot clip),
+    and the whole ``update`` (host and both passes); the norm pass's √Σ
+    partials held to ``global_norm`` on the same gradients; the allocator's
+    rise during an update and the host's enqueue time."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import adamw as kadam
+    from repro_torch.models.model import param_shapes
+    from repro_torch.optim import adamw, constant, global_norm
+    from repro_torch.optim.optimizers import adamw_loop
+
+    shapes = param_shapes(dataclasses.replace(get_config(name), n_layers=layers))
+    n = sum(math.prod(s) for s in shapes.values())
+    params = adamw_leaves(torch, dev, shapes, 7)
+    gen = torch.Generator(device=dev).manual_seed(8)
+    grads = {k: 1e-4 * torch.randn(s, device=dev, generator=gen) for k, s in shapes.items()}
+    hyper = dict(b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.0)
+    opt = adamw(constant(3e-5), clip=1.0, **hyper)
+    state = opt.init(params)
+    m, v = state.inner["m"], state.inner["v"]
+    P, G, M, V = (list(d.values()) for d in (params, grads, m, v))
+    opt.update(grads, state, params)  # the chunk list, the library
+    torch.cuda.synchronize()
+    before = kadam.LAUNCHES["adamw_update"]
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    opt.update(grads, state, params)
+    host_ms = 1e3 * (time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    rise = torch.cuda.max_memory_allocated() - base
+    if kadam.LAUNCHES["adamw_update"] != before + 1:
+        raise AssertionError(f"adamw at {name}: {kadam.LAUNCHES['adamw_update'] - before} "
+                             "adamw_update launches in one update")
+    if rise >= ADAMW_RISE_MB * 2**20:
+        raise AssertionError(f"adamw at {name}: an update raised the allocator's high-water "
+                             f"mark by {rise / 2**20:.1f} MB")
+    partials = kadam._sq_norm_op(G)
+    norm, want = float(torch.sqrt(partials.sum())), float(global_norm(grads))
+    if abs(norm - want) > ADAMW_TOL * want:
+        raise AssertionError(f"adamw at {name}: the norm pass's {norm} against "
+                             f"global_norm's {want}")
+    steps = [torch.ones((), device=dev) for _ in P]
+    lib = dict(lr=3e-5, beta1=0.9, beta2=0.999, weight_decay=0.0, eps=1e-8, amsgrad=False,
+               maximize=False)
+    r = {
+        "leaves": len(shapes), "params": n, "norm_abs_err": abs(norm - want),
+        "norm_rel_err": abs(norm - want) / want,
+        "sq_norm_ms": median_ms(torch, lambda: kadam._sq_norm_op(G), reps=10),
+        "update_ms": median_ms(torch, lambda: kadam._update_op(
+            P, M, V, G, partials, 3e-5, 0.9, 0.999, 0.5, 0.5, 1e-8, 0.0, 1.0), reps=10),
+        "step_ms": median_ms(torch, lambda: opt.update(grads, state, params), reps=10),
+        "sq_norm_bound_ms": 1e3 * 4 * n / mem_bw, "update_bound_ms": 1e3 * 28 * n / mem_bw,
+        "host_ms": host_ms, "rise_mb": rise / 2**20,
+        "sq_norm_plain_ms": median_ms(torch, lambda: global_norm(grads), reps=10),
+        "sq_norm_library_ms": median_ms(torch, lambda: torch.linalg.vector_norm(
+            torch.stack(torch._foreach_norm(G))), reps=10),
+        "update_library_ms": median_ms(torch, lambda: torch._fused_adamw_(
+            P, G, M, V, [], steps, **lib), reps=10),
+    }
+    del partials
+    r["update_plain_ms"] = median_ms(torch, lambda: adamw_loop(
+        params, grads, m, v, lr=3e-5, bc1=0.5, bc2=0.5, clip=None, **hyper), reps=3, warm=1)
+    r["loop_ms"] = median_ms(torch, lambda: adamw_loop(
+        params, grads, m, v, lr=3e-5, bc1=0.5, bc2=0.5, clip=1.0, **hyper), reps=3, warm=1)
+    return r
+
+
+def check_adamw(torch, card, dev, mem_bw: float) -> dict:
+    """AdamW's two kernels against the plain twin on the card: ragged leaves
+    (clip engaged, set but idle, and off; weight decay on and off), a slice
+    of qwen2-7b's leaf set (the embedding, one layer with its biases and
+    norm scales, the final norm) with the clip engaged and off, and ragged
+    leaves as DTensors of a (1, 1) mesh over NCCL in a group of one; then
+    both passes timed at the benchmark's leaf sets (ADAMW_CUTS).  Returns
+    the report's rows for ``adamw_sq_norm`` and ``adamw_update`` at
+    qwen2-7b's leaf set, without launches: those are counted on the main
+    path (phases 6, 9 and 10).  ``max_abs_err`` is the norm's largest
+    |√Σ partials − global_norm|, and the update's largest |kernel − twin|
+    over p, m and v."""
+    import socket
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import param_shapes
+
+    t0 = time.perf_counter()
+    ragged = {f"leaf{i}": (n,) for i, n in enumerate(ADAMW_RAGGED)}
+    ragged["matrix"] = (129, 257)
+    worst: dict = {}
+
+    def keep(w, tag):
+        for k, x in w.items():
+            worst[k] = max(worst.get(k, 0.0), x)
+        log(f"[2] adamw {tag}: kernels against the twin, max |Δ| and max |Δ| / max |twin| "
+            f"of p, m, v, and the norm's |Δ| and |Δ| / norm: {w}")
+
+    for tag, scale, clip, wd in (("ragged, clip engaged", 3.0, 1.0, 0.0),
+                                 ("ragged, clip set, not engaged", 1e-5, 1.0, 0.01),
+                                 ("ragged, no clip", 3.0, None, 0.01)):
+        keep(hold_adamw(torch, dev, adamw_leaves(torch, dev, ragged, 1, unaligned=True),
+                        scale, clip, wd, tag), tag)
+    shapes = param_shapes(dataclasses.replace(get_config("qwen2-7b"), n_layers=1))
+    sliced = {k: s for k, s in shapes.items() if k != "unembed"}
+    for tag, clip in (("qwen2-7b slice, clip engaged", 1.0), ("qwen2-7b slice, no clip", None)):
+        keep(hold_adamw(torch, dev, adamw_leaves(torch, dev, sliced, 2), 1e-3, clip, 0.0,
+                        f"{tag} ({len(sliced)} leaves)"), tag)
+    torch.cuda.empty_cache()
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}", rank=0,
+                            world_size=1)
+    try:
+        mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
+        tag = "ragged on a (1, 1) mesh, clip engaged"
+        keep(hold_adamw(torch, dev, adamw_leaves(torch, dev, ragged, 3), 3.0, 1.0, 0.0, tag,
+                        mesh=mesh), tag)
+    finally:
+        dist.destroy_process_group()
+    timed = {}
+    for name, layers in ADAMW_CUTS.items():
+        timed[name] = time_adamw(torch, dev, name, layers, mem_bw)
+        log(f"[2] adamw at {name} ({layers} layers): {timed[name]}; {card}")
+        worst["norm_abs"] = max(worst["norm_abs"], timed[name]["norm_abs_err"])
+        torch.cuda.empty_cache()
+    log(f"[2] adamw: {time.perf_counter() - t0:.1f}s; worst over the holds {worst}")
+    q = timed["qwen2-7b"]
+    errs = {"sq_norm": worst["norm_abs"], "update": max(worst[f"{w}_abs"] for w in "pmv")}
+    return {k: {"max_abs_err": errs[part], "ms": q[f"{part}_ms"],
+                "plain_ms": q[f"{part}_plain_ms"], "library_ms": q[f"{part}_library_ms"],
+                "bound_ms": q[f"{part}_bound_ms"], "bound_by": "bytes"}
+            for k, part in zip(ADAMW_KERNELS, ("sq_norm", "update"))}
 
 
 def coverage64(torch, x, idx, block: int = 8192) -> float:
@@ -2041,6 +2287,9 @@ def streaming_lm_training(torch, ops, card, dev) -> dict:
                              f"{pool_batches} per drain × {STREAM_DRAINS}")
     if launches["fl_replay"] < STREAM_DRAINS:
         raise AssertionError(f"streaming: fl_replay launched {launches}")
+    if {launches[k] for k in ADAMW_KERNELS} != {len(steps)}:
+        raise AssertionError(f"streaming: {launches} launched in {len(steps)} steps; "
+                             "expected one adamw_sq_norm and one adamw_update a step")
     if plan.calls("refresh.worker") != STREAM_DRAINS + 1:
         raise AssertionError(f"streaming: refresh.worker calls {plan.calls('refresh.worker')}")
     for ev, idx, w, cursor in installed:
@@ -2074,7 +2323,7 @@ def streaming_lm_training(torch, ops, card, dev) -> dict:
         f"ms, install stall s): {per}; last install held to the dense finalize: {held}")
     del trainer, pool, finals
     torch.cuda.empty_cache()
-    return {"ce_proxy": launches["ce_proxy"], "fl_replay": launches["fl_replay"]}
+    return {k: launches[k] for k in ("ce_proxy", "fl_replay") + ADAMW_KERNELS}
 
 
 def pool_coverage(torch, x, idx) -> float:
@@ -4024,6 +4273,9 @@ def main() -> None:
     results["ce_proxy"] = check_ce_proxy(torch, ops, kce, dev, gen,
                                          (fp32_peak, bf16_peak, mem_bw), card)
     max_err.update(check_slice3_kernels(torch, ops, dev, gen))
+    results.update(check_adamw(torch, card, dev, mem_bw))
+    for kname in ADAMW_KERNELS:
+        max_err[kname] = results[kname].pop("max_abs_err")
 
     # -- 3. select: the main path -------------------------------------------
     x_np, y = make_classification(N_MAIN, D_MAIN, 2, seed=0)
@@ -4154,6 +4406,8 @@ def main() -> None:
     if drift > 1e-2:
         raise AssertionError(f"async and sync epoch-0 losses differ by {drift:.3e} (rel)")
     log(f"[6] async against sync, epoch 0: largest relative loss difference {drift:.3e}")
+    for kname in ADAMW_KERNELS:
+        results[kname]["launches"] = sync["adamw"][kname] + asyn["adamw"][kname]
     max_err["ce_proxy"] = results["ce_proxy"]["max_abs_err"]
 
     # -- 7. Covtype-shaped selection: the slice-3 sparse path ---------------
@@ -4170,6 +4424,9 @@ def main() -> None:
     # -- 9. LM coreset training at the published widths: slice 7's path -----
     wide = wide_lm_training(torch, ops, card, dev)
     results["ce_proxy"]["launches"] += sum(r["launches"] for r in wide.values())
+    for kname in ADAMW_KERNELS:
+        results[kname]["launches"] += sum(r.get("adamw", {}).get(kname, 0)
+                                          for r in wide.values())
 
     # -- 10. the lazy and stochastic engines; the streaming-ingest trainer ---
     t0 = time.perf_counter()

@@ -36,10 +36,12 @@ ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 LAUNCHES: dict[str, int] = {
     "fl_gains": 0, "fl_gains_argmax": 0, "ce_proxy": 0,
     "topk_sim": 0, "pairwise_l2": 0, "fl_replay": 0,
+    "adamw_sq_norm": 0, "adamw_update": 0,
 }
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 # C signatures of each source's entry points.
 SIGNATURES: dict[str, dict[str, tuple]] = {
     "fl_gains": {
@@ -66,6 +68,11 @@ SIGNATURES: dict[str, dict[str, tuple]] = {
         "fl_replay_block_rows": (),
         "fl_replay_f32": (_P,) * 11 + (_I,) * 3 + (_P,),
         "fl_replay_occupancy": (_P, _P),
+    },
+    "adamw": {
+        "adamw_max_leaves": (),
+        "adamw_sq_norm_f32": (_P, _I, _P, _I, _P, _I, _P),
+        "adamw_update_f32": (_P, _I, _P, _I, _P, _I) + (_F,) * 10 + (_P,),
     },
 }
 

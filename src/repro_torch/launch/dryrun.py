@@ -24,7 +24,8 @@ reckoned all the same.  The trace records, as the reference's artifact:
     ``ce_proxy`` kernel's custom op; elementwise work is not counted),
     and bytes accessed: over every op that writes a tensor (not a view
     or a metadata query), the bytes of its tensor inputs plus its
-    outputs.  Eager PyTorch fuses nothing, so
+    outputs (an op that returns nothing, the tensors it writes in place).
+    Eager PyTorch fuses nothing, so
     this is what the eager program moves, each op's operands read once;
   * ``collectives`` — the census of collectives by kind (``all_gather``,
     ``reduce_scatter``, ``all_reduce``, ``all_to_all``): a count and the
@@ -164,6 +165,15 @@ def _tensors(tree) -> list:
 
 def _operand_bytes(tree) -> int:
     return sum(t.numel() * t.element_size() for t in _tensors(tree))
+
+
+def _written(func, args, kwargs) -> list:
+    """The tensors an op writes in place (its schema's ``Tensor(a!)``
+    arguments): what a mutating op that returns nothing, such as
+    ``repro_torch::adamw_update``, writes."""
+    named = dict(zip((a.name for a in func._schema.arguments), args), **kwargs)
+    return _tensors([named.get(a.name) for a in func._schema.arguments
+                     if a.alias_info is not None and a.alias_info.is_write])
 
 
 def _aliases(outs: list, inputs) -> bool:
@@ -356,7 +366,7 @@ class Reckoner(TorchDispatchMode):
         if packet in flop_registry:
             self.flops[_flop_kind(args)] += scale * flop_registry[packet](
                 *args, **kwargs, out_val=out)
-        outs = _tensors(out)
+        outs = _tensors(out) or (_written(func, args, kwargs) if func._schema.is_mutable else [])
         kind = _COLLECTIVES.get(func.__name__.split(".")[0]) \
             if func.namespace == "_c10d_functional" else None
         if kind is not None:

@@ -10,8 +10,9 @@ Unlike the reference's pure functions, ``update`` writes the new values
 into the parameter and state tensors in place and returns them: at
 qwen3-1.7b width a second copy of parameters and AdamW moments would cost
 another 24 GB.  Whoever must keep the old parameters (the asynchronous
-refresh) copies them first.  Schedules map the step count (an int) to a
-float.
+refresh) copies them first.  AdamW's step on a card is two CUDA kernels
+over all leaves (``kernels.adamw.adamw_update_cuda``); elsewhere it is the
+plain loop, ``adamw_loop``, their twin.  Schedules map the step count (an int) to a float.
 """
 from __future__ import annotations
 
@@ -21,12 +22,15 @@ from typing import Callable, NamedTuple
 
 import torch
 
+from repro_torch.kernels.adamw import adamw_update_cuda
+
 __all__ = [
     "OptState",
     "Optimizer",
     "sgd",
     "momentum",
     "adamw",
+    "adamw_loop",
     "global_norm",
     "clip_by_global_norm",
     "exponential_decay",
@@ -48,7 +52,8 @@ class Optimizer:
     init: Callable[[dict], OptState]
     update: Callable[[dict, OptState, dict], tuple[dict, OptState]]
     """(grads, state, params) → (params, state), updated in place; the
-    grads may be scaled in place by clipping."""
+    grads may be scaled in place by clipping (AdamW's kernels leave them
+    as they are)."""
 
 
 def global_norm(grads: dict) -> torch.Tensor:
@@ -145,6 +150,26 @@ def momentum(schedule: Schedule, beta: float = 0.9, clip: float | None = None) -
     return Optimizer(init, update)
 
 
+@torch.no_grad()
+def adamw_loop(params: dict, grads: dict, m: dict, v: dict, *, lr: float, b1: float,
+               b2: float, bc1: float, bc2: float, eps: float, weight_decay: float,
+               clip: float | None) -> None:
+    """One AdamW step leaf by leaf, in place, computed in fp32 and cast back
+    to each parameter's dtype; clipping scales ``grads`` in place.  The
+    step for leaves off the card, and the plain twin of the CUDA kernels."""
+    grads = _maybe_clip(grads, clip)
+    for k, p in params.items():
+        g = grads[k].float()
+        m[k].mul_(b1).add_(g, alpha=1 - b1)
+        v[k].mul_(b2).addcmul_(g, g, value=1 - b2)
+        # one temporary a moment past m̂: at nemotron-4-15b's 1.57 B-element
+        # embedding each is 6.3 GB
+        delta = (m[k] / bc1).div_((v[k] / bc2).sqrt_().add_(eps))
+        if weight_decay:
+            delta.add_(p.float(), alpha=weight_decay)
+        _apply(p, delta.mul_(lr))
+
+
 def adamw(
     schedule: Schedule,
     b1: float = 0.9,
@@ -153,28 +178,26 @@ def adamw(
     weight_decay: float = 0.0,
     clip: float | None = 1.0,
 ) -> Optimizer:
+    """AdamW: the CUDA kernels when the parameters are on a card (their
+    gradients and moments must be too), the plain loop when they are
+    anywhere else; parameters on a card and off it raise."""
     def init(params):
         return OptState(0, {"m": _zeros(params), "v": _zeros(params)})
 
     @torch.no_grad()
     def update(grads, state, params):
-        grads = _maybe_clip(grads, clip)
         step = state.step + 1
         lr = schedule(state.step)
         # bias corrections in fp32, as the reference computes them
         bc1 = float(1 - torch.tensor(b1, dtype=torch.float32) ** step)
         bc2 = float(1 - torch.tensor(b2, dtype=torch.float32) ** step)
         m, v = state.inner["m"], state.inner["v"]
-        for k, p in params.items():
-            g = grads[k].float()
-            m[k].mul_(b1).add_(g, alpha=1 - b1)
-            v[k].mul_(b2).addcmul_(g, g, value=1 - b2)
-            # one temporary a moment past m̂: at nemotron-4-15b's 1.57 B-element
-            # embedding each is 6.3 GB
-            delta = (m[k] / bc1).div_((v[k] / bc2).sqrt_().add_(eps))
-            if weight_decay:
-                delta.add_(p.float(), alpha=weight_decay)
-            _apply(p, delta.mul_(lr))
+        kinds = {p.device.type for p in params.values()}
+        if "cuda" in kinds and kinds != {"cuda"}:
+            raise ValueError(f"AdamW leaves on {sorted(kinds)}: all on the card or none")
+        run = adamw_update_cuda if "cuda" in kinds else adamw_loop
+        run(params, grads, m, v, lr=lr, b1=b1, b2=b2, bc1=bc1, bc2=bc2, eps=eps,
+            weight_decay=weight_decay, clip=clip)
         return params, OptState(step, {"m": m, "v": v})
 
     return Optimizer(init, update)

@@ -415,6 +415,20 @@ CASES += [
      "kern", "cuda-accumulator-dtype", []),
 ]
 
+# scalars by value: ctypes.c_float against a C float parameter
+_FLOAT_BUILD = _BUILD.replace("_I = ctypes.c_int\n",
+                              "_I = ctypes.c_int\n    _F = ctypes.c_float\n")
+_FLOAT_CU = _CU.replace("int n, void* stream)", "int n, float lr, void* stream)")
+_FLOAT_WRAP = _WRAP.replace("width, 0)", "width, 0.5, 0)")
+CASES += [
+    ("signature-float-quiet", _kern(
+        build=_FLOAT_BUILD.replace("(_P,) * 2 + (_I,) + (_P,)", "(_P,) * 2 + (_I, _F) + (_P,)"),
+        cu=_FLOAT_CU, wrap=_FLOAT_WRAP), "kern", "cuda-entry-signature", []),
+    ("signature-float-as-int", _kern(
+        build=_FLOAT_BUILD.replace("(_P,) * 2 + (_I,) + (_P,)", "(_P,) * 2 + (_I, _I) + (_P,)"),
+        cu=_FLOAT_CU, wrap=_FLOAT_WRAP), "kern", "cuda-entry-signature", [("_build.py", 11)]),
+]
+
 _TRITON = '''
     import triton
     import triton.language as tl
@@ -501,12 +515,13 @@ def test_the_tree_keeps_its_kernel_contract():
 
     [c] = cuda_contract.read_contracts(FileIndex.build([PORT]))
     assert not c.findings
-    assert len(c.signatures) == 15 == len(c.prototypes)
+    assert len(c.signatures) == 18 == len(c.prototypes)
     assert set(c.signatures) == {e for s in _build.SIGNATURES.values() for e in s}
-    assert len(c.launching) == 8
+    assert len(c.launching) == 10
     assert all(e.endswith(("_f32", "_bf16")) for e in c.launching)
+    assert c.signatures["adamw_update_f32"].count("float") == 10
     bumps = c.bumped_keys()
-    assert len(bumps) == 6 and all(len(k) == 1 for k in bumps.values())
+    assert len(bumps) == 8 and all(len(k) == 1 for k in bumps.values())
     assert set().union(*bumps.values()) == set(_build.LAUNCHES) == set(c.launch_keys)
 
 

@@ -90,7 +90,8 @@ def test_cuda_kernels_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         kfl.fl_gains_argmax_cuda(x, x, cur, sq, sq, chosen)
     assert ops.LAUNCHES == {"fl_gains": 0, "fl_gains_argmax": 0, "ce_proxy": 0,
-                            "topk_sim": 0, "pairwise_l2": 0, "fl_replay": 0}
+                            "topk_sim": 0, "pairwise_l2": 0, "fl_replay": 0,
+                            "adamw_sq_norm": 0, "adamw_update": 0}
 
 
 def test_ce_proxy_kernel_refuses_cpu_tensors():
